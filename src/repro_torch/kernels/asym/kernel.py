@@ -1,0 +1,135 @@
+"""Launch wrappers for the hand-written Hopper asym kernels
+(``csrc/asym.cu``; see its header for the design and what bounds it).
+
+  * ``asym_similarity_kernel`` replaces the JAX package's
+    ``kernels/asym/kernel.py::asym_similarity_kernel``: [B, M] float32
+    exp(beta * asym-cos), the projection q . planes^T computed inside
+    the kernel.
+  * ``asym_segment_sum_kernel`` replaces
+    ``kernels/asym/kernel.py::asym_segment_sum_kernel``: per-segment
+    sums of the same values over CSR-sorted rows, [B, S] float32; the
+    [B, M] intermediate never reaches device memory and the sum is
+    bitwise deterministic (no float atomics).
+
+Each wrapper checks device, dtype, shape and contiguity and raises on
+anything the kernel does not take, allocates its output with
+``torch.empty``, launches on the current stream, raises if the launch
+reported a CUDA error, and adds one to its ``launches`` counter.  The
+wrappers take query rows already unit-normalised (``ops`` does that).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import common
+
+_GRID_Y_MAX = 65535
+_INT32_MAX = 2 ** 31 - 1
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    lib = common.load_library("asym")
+    if not getattr(lib, "_asym_typed", False):
+        lib.asym_query_tile.argtypes = []
+        lib.asym_query_tile.restype = _I
+        lib.asym_exp_similarity_launch.argtypes = [
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+        lib.asym_exp_similarity_launch.restype = _I
+        lib.asym_exp_segment_sum_launch.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+        lib.asym_exp_segment_sum_launch.restype = _I
+        lib._asym_typed = True
+    return lib
+
+
+def _check(q: torch.Tensor, planes: torch.Tensor, db: torch.Tensor,
+           bits: int) -> "tuple[int, int, int, int]":
+    """Validate the shared operands; returns (B, dim, M, W)."""
+    for name, t in (("q", q), ("planes", planes), ("db", db)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+    if not (q.device == planes.device == db.device):
+        raise ValueError("q, planes and db must lie on one device")
+    if q.dtype != torch.float32 or planes.dtype != torch.float32:
+        raise TypeError("q and planes must be float32")
+    if db.dtype != torch.int32:
+        raise TypeError(f"db must hold packed int32 words, got {db.dtype}")
+    b, dim = q.shape
+    m, w = db.shape
+    if bits <= 0 or bits % 32 or w * 32 < bits:
+        raise ValueError(f"bits={bits} must be a positive multiple of 32 "
+                         f"covered by the {w} packed words per row")
+    if planes.shape != (bits, dim):
+        raise ValueError(f"planes must be [{bits}, {dim}], "
+                         f"got {tuple(planes.shape)}")
+    if m > _INT32_MAX:
+        raise ValueError(f"too many rows for int32 indexing: M={m}")
+    return b, dim, m, w
+
+
+def _scale(bits: int) -> float:
+    return 1.0 / (bits * math.sqrt(2.0 / math.pi))
+
+
+def asym_similarity_kernel(q: torch.Tensor, planes: torch.Tensor,
+                           db: torch.Tensor, bits: int, *,
+                           temperature: float = 1.0) -> torch.Tensor:
+    """[B, dim] unit rows x [M, W] packed int32 -> [B, M] float32
+    exp(temperature * asym-cos), on the hand-written CUDA kernel."""
+    b, dim, m, w = _check(q, planes, db, bits)
+    out = torch.empty((b, m), dtype=torch.float32, device=q.device)
+    if b == 0 or m == 0:
+        return out
+    lib = _lib()
+    if -(-b // lib.asym_query_tile()) > _GRID_Y_MAX:
+        raise ValueError(f"too many queries for one launch: B={b}")
+    rc = lib.asym_exp_similarity_launch(
+        q.data_ptr(), planes.data_ptr(), db.data_ptr(), out.data_ptr(),
+        b, dim, bits, m, w, _scale(bits), float(temperature),
+        common.stream_ptr(q.device))
+    common.check_launch(rc, "asym_exp_similarity")
+    asym_similarity_kernel.launches += 1
+    return out
+
+
+asym_similarity_kernel.launches = 0
+
+
+def asym_segment_sum_kernel(q: torch.Tensor, planes: torch.Tensor,
+                            db_sorted: torch.Tensor,
+                            seg_offsets: torch.Tensor, bits: int, *,
+                            temperature: float = 1.0) -> torch.Tensor:
+    """[B, dim] unit rows x segment-sorted [M, W] packed int32 rows with
+    CSR ``seg_offsets`` [S + 1] int32 (segment s owns rows
+    ``seg_offsets[s]:seg_offsets[s + 1]``) -> [B, S] float32 sums of
+    exp(temperature * asym-cos), on the hand-written CUDA kernel."""
+    b, dim, m, w = _check(q, planes, db_sorted, bits)
+    if (seg_offsets.device != q.device or seg_offsets.dtype != torch.int32
+            or seg_offsets.dim() != 1 or not seg_offsets.is_contiguous()
+            or seg_offsets.shape[0] < 1):
+        raise ValueError("seg_offsets must be a contiguous 1-D int32 CUDA "
+                         "tensor of S + 1 offsets on q's device")
+    s = seg_offsets.shape[0] - 1
+    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    lib = _lib()
+    if -(-b // lib.asym_query_tile()) > _GRID_Y_MAX:
+        raise ValueError(f"too many queries for one launch: B={b}")
+    rc = lib.asym_exp_segment_sum_launch(
+        q.data_ptr(), planes.data_ptr(), db_sorted.data_ptr(),
+        seg_offsets.data_ptr(), out.data_ptr(),
+        b, dim, bits, m, w, s, _scale(bits), float(temperature),
+        common.stream_ptr(q.device))
+    common.check_launch(rc, "asym_exp_segment_sum")
+    asym_segment_sum_kernel.launches += 1
+    return out
+
+
+asym_segment_sum_kernel.launches = 0
