@@ -25,8 +25,10 @@ Phases, each of which raises (exit code not 0) on any failure:
                 vectors = count-weighted mean of their documents'
                 vectors), ``build_index(granularity="doc")`` with the
                 kernels on, and ``QueryBatch`` over a
-                ``ShardTaskExecutor`` serving 3 batches of 48 mixed
-                count / Boolean / ranked queries at rate 0.05.  The
+                ``ShardTaskExecutor`` serving 2 batches of 48 mixed
+                count / Boolean / ranked queries at rate 0.05 (cut from
+                3: the host shard scan takes 50–220 s a batch, and the
+                run must stay well inside its 1200 s limit).  The
                 launch counters are zeroed just before and read just
                 after; both kernels must have launched.  Every batch's
                 probability rows are held against the plain path on the
@@ -36,10 +38,29 @@ Phases, each of which raises (exit code not 0) on any failure:
                 its bound (the larger of bytes / 3.35 TB/s and fp32
                 operations / 67 TFLOP/s, the H100 SXM peaks; operations
                 are those of the least-work, table-lookup algorithm,
-                see ``least_ops``).
+                see ``least_ops``, plus one compare per candidate for
+                the top-k kernels; the figure with the kernels' own
+                sort networks is printed beside it).
+  7. megascan — on the serving index: 12 query vectors from 3-word
+                triples with ragged plans (every 4th query one shard,
+                the next half the fleet, the rest the whole fleet)
+                through ``ShardTaskExecutor.map_shard_batch(...,
+                megakernel=True)`` with a sum ``MegascanSpec`` and a
+                ranked one (k=10): one group launch per call, held
+                against the plain versions on the same payload, bitwise
+                equal to the per-shard route on a seeded sample of 1024
+                shards and to the streamed schedule; both kernels timed,
+                and both routes on the sample, 20 host-clock runs each,
+                alternating (median, min, max).
+  8. top-k    — ``topk_doc_similarities_batch`` of the serving phase's
+                48 queries, k=10 over every doc, fused (the kernel)
+                against unfused; the kernel timed.
 
-The last three lines of standard output are the card line, the
-``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
+Each of the main paths (serving, megascan, top-k) is driven with the
+launch counters set to 0 just before it and read just after; each of
+its kernels must have launched.  The last three lines of standard
+output are the card line, the ``{"kernels": [...]}`` record and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -59,9 +80,23 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 RTOL = 1e-4
+# batches the serving phase serves; cut from 3, the host shard scan
+# takes 50-220 s a batch and the run must stay well inside 1200 s
+SERVE_BATCHES = 2
+ROUTE_RUNS = 20  # host-clock runs of each megascan route on the sample
 TEST_SHAPES = [  # (B, M, S, dim, bits, beta), the reference's kernel tests
     (1, 7, 3, 24, 128, 1.0), (5, 613, 37, 48, 128, 8.0),
     (9, 300, 128, 32, 64, 4.0), (3, 1000, 5, 48, 256, 8.0),
+]
+TOPK_SHAPES = [  # (B, M, k, dim, bits, beta, duplicated rows)
+    (3, 257, 10, 48, 128, 8.0, False), (5, 100, 100, 32, 64, 4.0, False),
+    (2, 700, 300, 24, 128, 1.0, False), (2, 50, 7, 24, 64, 2.0, False),
+    (4, 600, 10, 32, 64, 4.0, True),
+]
+RAGGED = (13, 8, 1, 0, 27, 64, 5)   # the reference's megascan shard census
+MEGA_SHAPES = [  # (shard doc counts, tm, k, duplicated rows); dim 16, bits 64
+    (RAGGED, 8, 5, False), (RAGGED, 16, 5, False), ((300, 40, 9), 256, 7, False),
+    (RAGGED, 16, 5, True),
 ]
 
 
@@ -124,6 +159,12 @@ def least_ops(b: int, m: int, bits: int, dim: int, per_row: int, *,
             + b * m * (bits / 8 + per_row))
 
 
+def sort_ces(n: int) -> float:
+    """Compare-exchanges of a bitonic sort of n (a power of two)."""
+    lg = int(n).bit_length() - 1
+    return n / 2 * lg * (lg + 1) / 2
+
+
 def bound(ops: float, nbytes: float) -> "tuple[float, str]":
     """(bound_ms, bound_by): the larger of ``ops`` over the fp32 peak
     and ``nbytes`` over the HBM rate."""
@@ -169,6 +210,121 @@ def kernel_phase(dev: torch.device) -> None:
             if bool((got[:, torch.from_numpy(~occupied).to(dev)] != 0).any()):
                 raise AssertionError("an empty segment is not exactly zero")
         log(f"   kernels ok at B={b} M={m} S={s} dim={dim} bits={bits}")
+
+
+def ties_by_index(vals: torch.Tensor, idx: torch.Tensor, width: int,
+                  what: str) -> int:
+    """Assert that within each run of ``width`` ranked candidates exact
+    ties come lowest index first; returns the number of ties seen."""
+    v = vals.cpu().reshape(-1, width)
+    i = idx.cpu().reshape(-1, width)
+    tie = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
+    if not bool((i[:, 1:][tie] > i[:, :-1][tie]).all()):
+        raise AssertionError(f"{what}: a tie is not lowest index first")
+    return int(tie.sum())
+
+
+def kernel_phase_ranked(dev: torch.device) -> None:
+    """The top-k and megascan kernels against their plain versions at
+    the reference's test shapes: twice bitwise, group == single shard
+    and streamed == pipelined bitwise, exact ties lowest index first."""
+    from repro_torch.core import lsh
+    from repro_torch.kernels.asym import kernel as k
+    from repro_torch.kernels.asym import ops, ref
+    from repro_torch.kernels.megascan import kernel as mk
+    from repro_torch.kernels.megascan import ops as mops
+    from repro_torch.kernels.megascan import ref as mref
+    from repro_torch.testing import assert_ids_equal_away_from_ties
+    from repro_torch.testing import ragged_segments
+
+    for b, m, kk, dim, bits, beta, dup in TOPK_SHAPES:
+        rng = np.random.default_rng(b * 1000 + m + kk)
+        q = torch.from_numpy(rng.normal(size=(b, dim)).astype(np.float32)).to(dev)
+        x = rng.normal(size=(m, dim)).astype(np.float32)
+        if dup:
+            x[1::2] = x[0::2][:m // 2]
+        planes = lsh.hyperplanes(lsh.LSHConfig(bits=bits), dim, dev)
+        db = lsh.pack_bits(lsh.signature_bits(torch.from_numpy(x).to(dev),
+                                              planes))
+        qn = ops._prep_queries(q)
+        kc = min(kk, m)
+        cv, ci = k.asym_topk_kernel(qn, planes, db, bits, kc, temperature=beta)
+        cv2, ci2 = k.asym_topk_kernel(qn, planes, db, bits, kc,
+                                      temperature=beta)
+        same(cv, cv2, f"top-k {b}x{m} k={kk}")
+        same(ci, ci2, f"top-k {b}x{m} k={kk}")
+        rv, ri = ref.asym_topk_candidates_ref(qn, db, planes, bits, kc,
+                                              k.topk_tile(kc), beta)
+        close(cv, rv, f"top-k candidates {b}x{m} k={kk}")
+        assert_ids_equal_away_from_ties(ci, ri, rv,
+                                        f"top-k candidates {b}x{m} k={kk}")
+        idx, vals = ops.asym_exp_topk(q, db, planes, bits, kk,
+                                      temperature=beta)
+        ridx, rvals = ref.asym_exp_topk_ref(qn, db, planes, bits, kk, beta)
+        close(vals, rvals, f"top-k {b}x{m} k={kk}")
+        assert_ids_equal_away_from_ties(idx, ridx, rvals,
+                                        f"top-k {b}x{m} k={kk}")
+        ties = ties_by_index(vals, idx, vals.shape[1], f"top-k {b}x{m}")
+        if dup and ties == 0:
+            raise AssertionError("duplicated rows gave no exact tie")
+        log(f"   top-k ok at B={b} M={m} k={kk} dim={dim} bits={bits}"
+            + (f" ({ties} exact ties, lowest index first)" if dup else ""))
+
+    for counts, tm, kk, dup in MEGA_SHAPES:
+        segs, q, planes_np = ragged_segments(counts, 16, 64,
+                                             tm + len(counts), dup)
+        pay = mops.build_payload(segs, tm=tm, device=dev)
+        planes = torch.from_numpy(planes_np).to(dev)
+        qt = torch.from_numpy(q).to(dev)
+        qn = ops._prep_queries(qt)
+        what = f"megascan {counts} tm={tm}"
+        got = mk.asym_megascan_segsum_kernel(qn, planes, pay.sig, pay.row_start,
+                                             pay.row_count, 64, temperature=4.0)
+        same(got, mk.asym_megascan_segsum_kernel(
+            qn, planes, pay.sig, pay.row_start, pay.row_count, 64,
+            temperature=4.0), what)
+        close(got, mref.asym_megascan_segsum_ref(
+            qn, pay.sig, planes, 64, pay.row_start, pay.row_count, 4.0), what)
+        if bool((got[:, torch.from_numpy(pay.counts == 0).to(dev)] != 0).any()):
+            raise AssertionError(f"{what}: an empty slot is not exactly zero")
+        sums = mops.megascan_segment_sums(pay, qt, planes, 64, temperature=4.0)
+        streamed = mops.megascan_segment_sums(pay, qt, planes, 64,
+                                              temperature=4.0,
+                                              double_buffer=False)
+        if not np.array_equal(sums, streamed):
+            raise AssertionError(f"{what}: streamed != pipelined")
+        slots = pay.slots.reshape(-1)
+        cv, cp = mk.asym_megascan_topk_kernel(qn, planes, pay.sig, slots, 64, kk,
+                                              pay.n_slots, tm, temperature=4.0)
+        cv2, cp2 = mk.asym_megascan_topk_kernel(qn, planes, pay.sig, slots, 64,
+                                                kk, pay.n_slots, tm,
+                                                temperature=4.0)
+        same(cv, cv2, what + " top-k")
+        same(cp, cp2, what + " top-k")
+        rv, rp = mref.asym_megascan_topk_ref(qn, pay.sig, slots, planes, 64, kk,
+                                             pay.n_slots, tm, 4.0)
+        close(cv, rv, what + " top-k")
+        for j in range(pay.n_blocks):
+            sl = slice(j * kk, (j + 1) * kk)
+            assert_ids_equal_away_from_ties(cp[:, sl], rp[:, sl], rv[:, sl],
+                                            what + " top-k")
+        ties = ties_by_index(cv, cp, kk, what + " top-k")
+        if dup and ties == 0:
+            raise AssertionError("duplicated rows gave no exact tie")
+        ids, vals = mops.megascan_topk(pay, qt, planes, 64, kk,
+                                       temperature=4.0)
+        for s, seg in enumerate(segs):
+            one = mops.build_payload([seg], tm=tm, device=dev)
+            single = mops.megascan_segment_sums(one, qt, planes, 64,
+                                                temperature=4.0)
+            i1, v1 = mops.megascan_topk(one, qt, planes, 64, kk,
+                                        temperature=4.0)
+            if not (np.array_equal(sums[:, s], single[:, 0])
+                    and np.array_equal(ids[:, s], i1[:, 0])
+                    and np.array_equal(vals[:, s], v1[:, 0])):
+                raise AssertionError(f"{what}: group != single shard {s}")
+        log(f"   megascan ok at {counts} tm={tm} k={kk}"
+            + (f" ({ties} exact ties, lowest position first)" if dup else ""))
 
 
 # ----------------------------------------------------------------------
@@ -342,7 +498,7 @@ def small_phase(dev: torch.device, seed: int) -> None:
 # ----------------------------------------------------------------------
 # phase 5 + 6: the main path, then the kernels at its shapes
 # ----------------------------------------------------------------------
-def serve_phase(dev: torch.device, args) -> list:
+def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
     from repro_torch.core.queries import QueryBatch
     from repro_torch.kernels.asym import kernel as k
     from repro_torch.kernels.asym import ref
@@ -485,10 +641,332 @@ def serve_phase(dev: torch.device, args) -> list:
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     shapes.insert(0, dict(B=b, M=m, dim=dim, bits=bits))
     for kr, shape in zip(kernels, shapes):
-        log(f"   {kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} "
-            f"ms, bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}, max abs "
-            f"err {kr['max_abs_err']:.3g}) at {shape}")
+        log_kernel(kr, shape)
+    return kernels, dict(corpus=corpus, index=index, counts=counts,
+                         batch=batch)
+
+
+def log_kernel(kr: dict, shape: dict) -> None:
+    log(f"   {kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} "
+        f"ms, bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}, max abs "
+        f"err {kr['max_abs_err']:.3g}, {kr['launches']} launches) at {shape}")
+
+
+def finite_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over the entries both hold finite (-inf marks
+    padding in the top-k candidates)."""
+    ok = torch.isfinite(got) & torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError("finite entries differ from the plain version")
+    return float((got[ok].double() - want[ok].double()).abs().max()) if bool(ok.any()) else 0.0
+
+
+# ----------------------------------------------------------------------
+# phase 7: the megascan over the serving index
+# ----------------------------------------------------------------------
+def ragged_plans(n_queries: int, n_shards: int, rng) -> list:
+    """serve_bench's megascan plans: every 4th query one shard, the next
+    half the fleet, the rest the whole fleet."""
+    plans = []
+    for i in range(n_queries):
+        if i % 4 == 0:
+            plans.append([int(rng.integers(n_shards))])
+        elif i % 4 == 1:
+            sub = rng.choice(n_shards, size=max(2, n_shards // 2),
+                             replace=False)
+            plans.append(sorted(int(s) for s in sub))
+        else:
+            plans.append(list(range(n_shards)))
+    return plans
+
+
+def dense_of(results: list, n_shards: int, ranked: bool):
+    """Group results (one {shard: result} dict per query) as dense
+    arrays: sums [B, S] (nan where a query did not plan a shard), or
+    ranked ids and values [B, S, k] (-1 / -inf)."""
+    b = len(results)
+    if not ranked:
+        out = np.full((b, n_shards), np.nan)
+        for qi, per in enumerate(results):
+            out[qi, list(per)] = list(per.values())
+        return out
+    k = max(len(r["doc_ids"]) for per in results for r in per.values())
+    ids = np.full((b, n_shards, k), -1, np.int64)
+    vals = np.full((b, n_shards, k), -np.inf)
+    for qi, per in enumerate(results):
+        for sid, r in per.items():
+            ids[qi, sid, :len(r["doc_ids"])] = r["doc_ids"]
+            vals[qi, sid, :len(r["values"])] = r["values"]
+    return ids, vals
+
+
+def results_equal(a: list, b: list, what: str) -> int:
+    """Assert two routes' results are bitwise equal where both have
+    them; returns the (query, shard) pairs compared."""
+    n = 0
+    for qa, qb in zip(a, b):
+        for sid, rb in qb.items():
+            ra = qa[sid]
+            ok = (np.array_equal(ra["doc_ids"], rb["doc_ids"])
+                  and np.array_equal(ra["values"], rb["values"])
+                  if isinstance(ra, dict) else ra == rb)
+            if not ok:
+                raise AssertionError(f"{what}: shard {sid} differs")
+            n += 1
+    return n
+
+
+def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
+    from repro_torch.kernels.asym import ops
+    from repro_torch.kernels.megascan import MegascanSpec
+    from repro_torch.kernels.megascan import kernel as mk
+    from repro_torch.kernels.megascan import ops as mops
+    from repro_torch.kernels.megascan import ref as mref
+    from repro_torch.runtime.executor import ShardTaskExecutor
+    from repro_torch.testing import assert_ids_equal_away_from_ties
+
+    corpus, index, counts = ctx["corpus"], ctx["index"], ctx["counts"]
+    n_shards = corpus.n_shards
+    rng = np.random.default_rng(args.seed + 23)
+    cand = np.nonzero((counts > 50 * corpus.n_docs / 3200)
+                      & (counts < 1200 * corpus.n_docs / 3200))[0]
+    triples = [rng.choice(cand, 3, replace=False).tolist() for _ in range(12)]
+    vecs = index.query_vectors(triples)
+    plans = ragged_plans(12, n_shards, rng)
+    sum_spec = MegascanSpec(index, vecs)
+    ranked_spec = MegascanSpec(index, vecs, ranked_k=10)
+    with ShardTaskExecutor(workers=4) as ex:
+        t = time.perf_counter()
+        index.megascan_payload(tuple(range(n_shards)))
+        torch.cuda.synchronize()
+        log(f"   full-fleet payload built and uploaded in "
+            f"{time.perf_counter() - t:.2f} s")
+        # ---- the main path: both specs through the group route ----
+        mk.asym_megascan_segsum_kernel.launches = 0
+        mk.asym_megascan_topk_kernel.launches = 0
+        jobs = ex.stats["megascan_jobs"]
+        mega = {}
+        for label, spec in (("sum", sum_spec), ("ranked", ranked_spec)):
+            t = time.perf_counter()
+            mega[label] = ex.map_shard_batch(corpus, plans, spec.scan_fns(),
+                                             megakernel=True)
+            wall = time.perf_counter() - t
+            if spec.stats["group_launches"] != 1:
+                raise AssertionError(f"{label}: {spec.stats} is not one "
+                                     f"group launch")
+            if "megascan" not in ex.last_job:
+                raise AssertionError(f"{label}: no megascan job record")
+            rec = ex.last_job["megascan"]
+            log(f"   {label} megascan: 1 launch over {rec['shards']} shards, "
+                f"{rec['real_rows']} real of {rec['rows']} payload rows, "
+                f"route wall {wall:.3f} s (scan {rec['wall_s']:.4f} s)")
+        launches = {"megascan_segsum": mk.asym_megascan_segsum_kernel.launches,
+                    "megascan_topk": mk.asym_megascan_topk_kernel.launches}
+        if ex.stats["megascan_jobs"] != jobs + 2:
+            raise AssertionError(f"megascan_jobs {ex.stats['megascan_jobs']}")
+        log(f"   launches on the megascan path: {launches}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched on its path")
+
+        # ---- against the plain versions on the same payload ----
+        pay = index.megascan_payload(tuple(range(n_shards)))
+        planes, bits, beta = index._device_planes(), index.bits, index.temperature
+        q = torch.as_tensor(vecs, device=dev)
+        qn = ops._prep_queries(q)
+        plain_sum = mref.asym_megascan_segsum_ref(
+            qn, pay.sig, planes, bits, pay.row_start, pay.row_count,
+            beta).cpu().numpy()
+        got = dense_of(mega["sum"], n_shards, False)
+        seen = ~np.isnan(got)
+        np.testing.assert_allclose(got[seen], plain_sum[seen], rtol=RTOL,
+                                   err_msg="megascan sums vs plain")
+        slots = pay.slots.reshape(-1)
+        pv, pp = mref.asym_megascan_topk_ref(qn, pay.sig, slots, planes, bits,
+                                             10, pay.n_slots, pay.tm, beta)
+        tv, tp = mops.per_slot_topk(pv, pp, pay.block_slot, pay.n_slots, 10)
+        tv, tp = tv.cpu().numpy(), tp.cpu().numpy()
+        plain_ids = np.where(np.isfinite(tv),
+                             pay.doc_idx[np.maximum(tp, 0)], -1)
+        ids, vals = dense_of(mega["ranked"], n_shards, True)
+        kk = ids.shape[2]
+        for qi, plan in enumerate(plans):
+            assert_ids_equal_away_from_ties(ids[qi, plan],
+                                            plain_ids[qi, plan, :kk],
+                                            tv[qi, plan, :kk],
+                      f"ranked megascan query {qi}")
+            fin = np.isfinite(vals[qi, plan])
+            np.testing.assert_allclose(vals[qi, plan][fin],
+                                       tv[qi, plan, :kk][fin], rtol=RTOL)
+        log("   group results match the plain versions (sums rtol 1e-4, "
+            "ranked ids away from near-ties)")
+
+        # ---- group == per-shard, bitwise, on a sample of 1024 shards ----
+        sample = set(rng.choice(n_shards, min(1024, n_shards),
+                                replace=False).tolist())
+        sub = [[s for s in plan if s in sample] for plan in plans]
+        walls = {}
+        for label, spec in (("sum", sum_spec), ("ranked", ranked_spec)):
+            fns = spec.scan_fns()
+            per = ex.map_shard_batch(corpus, sub, fns, megakernel=False)
+            n = results_equal(mega[label], per, f"{label} group vs per-shard")
+            grp = ex.map_shard_batch(corpus, sub, fns, megakernel=True)
+            results_equal(grp, per, f"{label} sample group vs per-shard")
+            log(f"   {label}: group == per-shard bitwise on {n} (query, "
+                f"shard) pairs over {len(sample)} sampled shards")
+        fns = sum_spec.scan_fns()
+        for megakernel in (True, False) * ROUTE_RUNS:   # alternating
+            t = time.perf_counter()
+            ex.map_shard_batch(corpus, sub, fns, megakernel=megakernel)
+            walls.setdefault(megakernel, []).append(time.perf_counter() - t)
+        for label, key, n in (("group", True, "1 launch"),
+                              ("per-shard", False, f"{len(sample)} launches")):
+            w_ = walls[key]
+            log(f"   1024-shard sample, {label} route ({n}), host wall over "
+                f"{len(w_)} runs: median {np.median(w_)} s, min {min(w_)} s, "
+                f"max {max(w_)} s")
+        log(f"   per-shard / group median: "
+            f"{np.median(walls[False]) / np.median(walls[True])}")
+
+    # ---- streamed == pipelined on the full-fleet payload ----
+    pipelined = mops.megascan_segment_sums(pay, q, planes, bits,
+                                           temperature=beta)
+    streamed = mops.megascan_segment_sums(pay, q, planes, bits,
+                                          temperature=beta,
+                                          double_buffer=False)
+    if not np.array_equal(pipelined, streamed):
+        raise AssertionError("full-fleet streamed != pipelined")
+    log("   full fleet: streamed == pipelined, bitwise")
+
+    # ---- both kernels at the full-fleet shapes ----
+    b, dim, w = qn.shape[0], planes.shape[1], pay.sig.shape[1]
+    real, n_slots = pay.real_rows, pay.n_slots
+    got = mk.asym_megascan_segsum_kernel(qn, planes, pay.sig, pay.row_start,
+                                         pay.row_count, bits, temperature=beta)
+    same(got, mk.asym_megascan_segsum_kernel(
+        qn, planes, pay.sig, pay.row_start, pay.row_count, bits,
+        temperature=beta), "megascan sum, full fleet")
+    err = close(got, torch.from_numpy(plain_sum).to(dev),
+                "megascan sum, full fleet")
+    nbytes = 4.0 * (real * w + 2 * n_slots + b * dim + bits * dim
+                    + b * n_slots)
+    bound_ms, bound_by = bound(least_ops(b, real, bits, dim, 4), nbytes)
+    shape = dict(B=b, real_rows=real, payload_rows=pay.n_rows, S=n_slots,
+                 dim=dim, bits=bits)
+    kernels = [dict(
+        name="asym_megascan_segsum", route="cuda",
+        source="src/repro_torch/csrc/megascan.cu",
+        replaces="src/repro/kernels/megascan/kernel.py:182",
+        launches=launches["megascan_segsum"], max_abs_err=err,
+        ms=time_ms(lambda: mk.asym_megascan_segsum_kernel(
+            qn, planes, pay.sig, pay.row_start, pay.row_count, bits,
+            temperature=beta)),
+        plain_ms=time_ms(lambda: mref.asym_megascan_segsum_ref(
+            qn, pay.sig, planes, bits, pay.row_start, pay.row_count, beta)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+    log_kernel(kernels[-1], shape)
+
+    cv, cp = mk.asym_megascan_topk_kernel(qn, planes, pay.sig, slots, bits, 10,
+                                          n_slots, pay.tm, temperature=beta)
+    cv2, cp2 = mk.asym_megascan_topk_kernel(qn, planes, pay.sig, slots, bits,
+                                            10, n_slots, pay.tm,
+                                            temperature=beta)
+    same(cv, cv2, "megascan top-k, full fleet")
+    same(cp, cp2, "megascan top-k, full fleet")
+    err = finite_err(cv, pv)
+    close(cv, pv, "megascan top-k candidates, full fleet")
+    # the function reads the real rows' signatures and the per-slot
+    # ranges (not the padded payload's row -> slot map) and writes the
+    # candidates; a top-k selection takes about one compare per
+    # (query, real row)
+    nbytes = 4.0 * (real * w + 2 * n_slots + b * dim + bits * dim
+                    + 2 * b * pay.n_blocks * 10)
+    bound_ms, bound_by = bound(least_ops(b, real, bits, dim, 3) + b * real,
+                               nbytes)
+    sort_ms, _ = bound(least_ops(b, real, bits, dim, 3)
+                       + b * pay.n_blocks * sort_ces(pay.tm),
+                       nbytes + 4.0 * pay.n_rows)
+    log(f"   megascan top-k bound with this kernel's {pay.tm}-wide sort "
+        f"network and row -> slot map: {sort_ms} ms")
+    kernels.append(dict(
+        name="asym_megascan_topk", route="cuda",
+        source="src/repro_torch/csrc/megascan.cu",
+        replaces="src/repro/kernels/megascan/kernel.py:363",
+        also_replaces="src/repro/kernels/megascan/kernel.py:411",
+        launches=launches["megascan_topk"], max_abs_err=err,
+        ms=time_ms(lambda: mk.asym_megascan_topk_kernel(
+            qn, planes, pay.sig, slots, bits, 10, n_slots, pay.tm,
+            temperature=beta)),
+        plain_ms=time_ms(lambda: mref.asym_megascan_topk_ref(
+            qn, pay.sig, slots, planes, bits, 10, n_slots, pay.tm, beta)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    log_kernel(kernels[-1], dict(shape, k=10, tm=pay.tm, blocks=pay.n_blocks))
     return kernels
+
+
+# ----------------------------------------------------------------------
+# phase 8: ranked top-k over every document
+# ----------------------------------------------------------------------
+def topk_phase(dev: torch.device, ctx: dict) -> list:
+    from repro_torch.kernels.asym import kernel as k
+    from repro_torch.kernels.asym import ops, ref
+    from repro_torch.testing import assert_ids_equal_away_from_ties
+
+    index, batch = ctx["index"], ctx["batch"]
+    words = [sorted(q.expr.words()) if q.kind == "bool" else q.word_ids()
+             for q in batch]
+    k.asym_topk_kernel.launches = 0
+    t = time.perf_counter()
+    ids, vals = index.topk_doc_similarities_batch(words, k=10)
+    wall = time.perf_counter() - t
+    launches = k.asym_topk_kernel.launches
+    log(f"   fused top-10 over {index.n_docs} docs for {len(words)} queries: "
+        f"{wall:.3f} s host wall, {launches} launches")
+    if launches <= 0:
+        raise AssertionError("asym_exp_topk never launched on its path")
+    if ids.shape != (len(words), 10) or not np.all(np.isfinite(vals)):
+        raise AssertionError("malformed top-k result")
+    uids, uvals = index.topk_doc_similarities_batch(words, k=10, fused=False)
+    np.testing.assert_allclose(vals, uvals, rtol=RTOL,
+                               err_msg="fused vs unfused top-k")
+    assert_ids_equal_away_from_ties(ids, uids, uvals, "fused vs unfused top-k")
+    log("   fused == unfused (values rtol 1e-4, ids away from near-ties)")
+
+    planes, bits, beta = index._device_planes(), index.bits, index.temperature
+    db = index._device_sig(index.doc_sig, "doc")
+    qn = ops._prep_queries(torch.as_tensor(index.query_vectors(words),
+                                           device=dev))
+    b, dim, m, w = qn.shape[0], planes.shape[1], db.shape[0], db.shape[1]
+    tm = k.topk_tile(10)
+    cv, ci = k.asym_topk_kernel(qn, planes, db, bits, 10, temperature=beta)
+    cv2, ci2 = k.asym_topk_kernel(qn, planes, db, bits, 10, temperature=beta)
+    same(cv, cv2, "top-k at the serving shapes")
+    same(ci, ci2, "top-k at the serving shapes")
+    rv, ri = ref.asym_topk_candidates_ref(qn, db, planes, bits, 10, tm, beta)
+    err = finite_err(cv, rv)
+    close(cv, rv, "top-k candidates at the serving shapes")
+    assert_ids_equal_away_from_ties(ci, ri, rv,
+                                    "top-k candidates at the serving shapes")
+    n_tiles = -(-m // tm)
+    # a per-tile top-k selection takes about one compare per candidate
+    nbytes = 4.0 * (m * w + b * dim + bits * dim + 2 * b * n_tiles * 10)
+    bound_ms, bound_by = bound(least_ops(b, m, bits, dim, 3) + b * m, nbytes)
+    sort_ms, _ = bound(least_ops(b, m, bits, dim, 3)
+                       + b * n_tiles * sort_ces(tm), nbytes)
+    log(f"   top-k bound with this kernel's {tm}-wide sort network: "
+        f"{sort_ms} ms")
+    kr = dict(
+        name="asym_exp_topk", route="cuda",
+        source="src/repro_torch/csrc/asym.cu",
+        replaces="src/repro/kernels/asym/kernel.py:240",
+        launches=launches, max_abs_err=err,
+        ms=time_ms(lambda: k.asym_topk_kernel(qn, planes, db, bits, 10,
+                                              temperature=beta)),
+        plain_ms=time_ms(lambda: ref.asym_topk_candidates_ref(
+            qn, db, planes, bits, 10, tm, beta)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log_kernel(kr, dict(B=b, M=m, k=10, tm=tm, dim=dim, bits=bits))
+    return [kr]
 
 
 def main(argv=None) -> int:
@@ -497,7 +975,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-docs", type=int, default=1 << 20)
-    p.add_argument("--batches", type=int, default=3)
+    p.add_argument("--batches", type=int, default=SERVE_BATCHES)
     p.add_argument("--batch", type=int, default=48)
     p.add_argument("--rate", type=float, default=0.05)
     args = p.parse_args(argv)
@@ -518,11 +996,18 @@ def main(argv=None) -> int:
     log(f"== build: {time.perf_counter() - t:.1f} s")
     log("== kernels vs plain versions at the reference's test shapes")
     kernel_phase(dev)
+    kernel_phase_ranked(dev)
     log("== small input: CUDA index vs CPU index")
     small_phase(dev, args.seed)
     log(f"== serving: n_docs={args.n_docs}, {args.batches} batches of "
-        f"{args.batch} at rate {args.rate}")
-    kernels = serve_phase(dev, args)
+        f"{args.batch} at rate {args.rate}"
+        + (f" (cut from 3 to {SERVE_BATCHES} to stay inside the time limit)"
+           if args.batches == SERVE_BATCHES else ""))
+    kernels, ctx = serve_phase(dev, args)
+    log("== megascan: sum and ranked specs through the group route")
+    mega = megascan_phase(dev, args, ctx)
+    log("== ranked top-k over every document")
+    kernels += topk_phase(dev, ctx) + mega
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,15 +29,21 @@ shard-sorted doc signatures and slots, the CSR segment offsets) are
 uploaded once and cached; ``attach_corpus`` drops them.  Results come
 back as numpy float64, as in the reference.
 
+Ranked retrieval over documents (``topk_doc_similarities_batch``) runs
+the fused per-tile top-k (``kernels/asym``) on the cached doc
+signatures; ``megascan_payload`` packs a shard group's doc signatures
+into the block-aligned payload of the one-launch megascan
+(``kernels/megascan``), cached per (shards, tile, content generation).
+
 Not in this module yet: the paper-faithful two-sided Hamming mode
-(``lsh_mode="sym"`` raises), ranked top-k over documents, the megascan
-payload and the live-ingest refresh.
+(``lsh_mode="sym"`` raises) and the live-ingest refresh.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import threading
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -48,6 +54,10 @@ from repro_torch.core.sampling import similarity_probabilities
 from repro_torch.data.store import ShardedCorpus, atomic_savez
 from repro_torch.kernels.common import resolve_device
 from repro_torch.runtime.generation import GenerationClock
+
+
+# guards the megascan payload cache's check-then-build
+_PAYLOAD_LOCK = threading.Lock()
 
 
 def _sym_unsupported() -> NotImplementedError:
@@ -251,6 +261,37 @@ class ApproxIndex:
             temperature=self.temperature)
         return out.cpu().numpy().astype(np.float64)
 
+    def topk_doc_similarities_batch(
+            self, queries: Sequence[Sequence[int]], k: int = 10, *,
+            fused: bool = True) -> "tuple[np.ndarray, np.ndarray]":
+        """Ranked retrieval over *documents*: ([B, k] int64 doc indices,
+        [B, k] float64 exp-similarities), rows descending, ties to the
+        lowest doc index, k = min(k, n_docs).
+
+        ``fused=True`` on an asym LSH index runs the fused top-k (only
+        per-tile candidates leave the kernel); ``fused=False`` scores
+        the [B, n_docs] matrix unfused and takes a stable argsort — the
+        parity reference."""
+        if self.doc_sig is None and self.doc_vecs is None:
+            raise ValueError("index was built without document vectors")
+        vecs = np.atleast_2d(self.query_vectors(queries))
+        if fused and self.use_lsh and self.doc_sig is not None:
+            if self.lsh_mode != "asym":
+                raise _sym_unsupported()
+            from repro_torch.kernels.asym import ops as asym_ops
+            idx, vals = asym_ops.asym_exp_topk(
+                torch.as_tensor(np.asarray(vecs, np.float32),
+                                device=self.device),
+                self._device_sig(self.doc_sig, "doc"),
+                self._device_planes(), self.bits, k,
+                temperature=self.temperature)
+            return (idx.cpu().numpy().astype(np.int64),
+                    vals.cpu().numpy().astype(np.float64))
+        sims = self._exp_sim_batch(vecs, self.doc_sig, self.doc_vecs, "doc")
+        k = min(int(k), sims.shape[1])
+        idx = np.argsort(-sims, axis=1, kind="stable")[:, :k]
+        return idx.astype(np.int64), np.take_along_axis(sims, idx, axis=1)
+
     def word_shard_similarities_batch(
             self, word_ids: Sequence[int]) -> np.ndarray:
         """[n_words, n_shards] per-word p(w|s) rows in one pass — lets a
@@ -308,14 +349,45 @@ class ApproxIndex:
         out[:, nonempty] = np.add.reduceat(vals, starts[nonempty], axis=1)
         return out
 
+    def megascan_payload(self, shard_ids, *, tm: int = 256):
+        """Block-aligned packed signature payload for the one-launch
+        megascan (``kernels/megascan``) on this index's device: the
+        named shards' shard-sorted doc signatures, each padded
+        independently to TM-row blocks and concatenated, with row ->
+        shard-slot and row -> doc-id maps.  Cached per ``(shard_ids, tm,
+        content generation)``: the serving path re-scans the same shard
+        groups every window, and the payload must not be re-uploaded
+        per batch; ``attach_corpus`` bumps the content generation and
+        drops the cache."""
+        if self.doc_sig is None:
+            raise ValueError("megascan requires doc signatures")
+        from repro_torch.kernels.megascan import ops as mega_ops
+        ids = tuple(int(s) for s in shard_ids)
+        key = (ids, int(tm), self.clock.current().content)
+        with _PAYLOAD_LOCK:      # the executor's workers call in parallel
+            cache = getattr(self, "_megascan_pay", None)
+            if cache is None:
+                cache = {}
+                object.__setattr__(self, "_megascan_pay", cache)
+            payload = cache.get(key)
+            if payload is None:
+                order, starts, counts, _, sig = self._shard_sorted_docs()
+                segments = [(sig[starts[s]:starts[s] + counts[s]],
+                             order[starts[s]:starts[s] + counts[s]])
+                            for s in ids]
+                payload = mega_ops.build_payload(
+                    segments, tm=tm, shard_ids=ids, device=self.device)
+                cache[key] = payload
+            return payload
+
     def attach_corpus(self, corpus) -> "ApproxIndex":
         """Record the doc->shard map (needed for doc-granular scoring).
-        Drops the shard-sort and device-operand caches — both derive
-        from the map — and bumps the *content* generation: anything
-        keyed on what this index answers from is stale the moment a new
-        corpus attaches."""
+        Drops the shard-sort, device-operand and megascan-payload caches
+        — all derive from the map — and bumps the *content* generation:
+        anything keyed on what this index answers from is stale the
+        moment a new corpus attaches."""
         self._doc_shard_ids = corpus.doc_shard_map()
-        for cached in ("_shard_sort", "_dev"):
+        for cached in ("_shard_sort", "_dev", "_megascan_pay"):
             if hasattr(self, cached):
                 object.__delattr__(self, cached)
         self.clock.bump_content()

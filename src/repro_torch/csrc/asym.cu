@@ -1,6 +1,6 @@
 // Asymmetric-LSH exp-similarity kernels for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   * src/repro/kernels/asym/kernel.py, asym_similarity_kernel
 //     (body _asym_sim_kernel via _exp_sim_tile): the full [B, M] matrix
 //         out[b, m] = exp(beta * clip(proj[b] . sign(db[m]) * scale, -1, 1))
@@ -8,7 +8,12 @@
 //   * src/repro/kernels/asym/kernel.py, asym_segment_sum_kernel
 //     (body _asym_segsum_kernel): the same values summed per segment slot,
 //         out[b, s] = sum over docs m of segment s of the value above,
-//     without the [B, M] intermediate ever reaching device memory.
+//     without the [B, M] intermediate ever reaching device memory;
+//   * src/repro/kernels/asym/kernel.py, asym_topk_kernel
+//     (body _asym_topk_kernel): per TM-row tile, each query's K best
+//     (value, global doc index), columns >= M masked to -inf; the
+//     wrapper takes the final top-k over the [B, ceil(M/TM)*K]
+//     candidates, so the [B, M] matrix never reaches device memory.
 //
 // What bounds them on the card: the sign product.  Per (query, doc) it
 // is `bits` multiply-adds in fp32 (2*B*M*bits operations), against
@@ -16,9 +21,11 @@
 // (B in the tens, bits = 256) the kernels sit far above the fp32 ridge
 // and are bound by operations, not bytes.  The parity path stays in
 // fp32 (no TF32/bf16 tensor cores), so the bound is the card's fp32
-// rate outside the tensor cores.
+// rate outside the tensor cores.  The top-k adds its sort network:
+// per tile and query, TM/2 * log2(TM) * (log2(TM) + 1) / 2
+// compare-exchanges in shared memory.
 //
-// What the design does about it:
+// What the design does about it (shared device code in asym_tile.cuh):
 //   * one block holds a tile of TB queries; it computes their
 //     projection q . planes^T once, into shared memory, transposed to
 //     [bits][TB] so one signature bit's TB projections are two float4
@@ -30,12 +37,16 @@
 //     once per query tile;
 //   * a block amortises its projection over many docs (SIM_DOCS per
 //     thread in the similarity kernel, SEGS_PER_WARP segments per warp
-//     in the segment sum).
+//     in the segment sum, TOPK_TILES tiles in the top-k);
+//   * the top-k scores a tile into shared memory and sorts it there
+//     with a bitonic network (value descending, ties by ascending doc
+//     index, the order of jax.lax.top_k); only K candidates per tile
+//     and query are written.
 //
 // Determinism of the segment sum: no float atomics.  Rows arrive
 // sorted by segment with CSR offsets (the wrapper builds them; the
-// index caches them).  One warp owns a segment: lane l sums docs
-// lo+l, lo+l+32, ... in that order, then a fixed xor-butterfly of
+// index caches them).  One warp owns a segment (slot_sum): lane l sums
+// docs lo+l, lo+l+32, ... in that order, then a fixed xor-butterfly of
 // warp shuffles adds the 32 partials.  The same inputs give the same
 // bits on every run.  Empty segments give exact zeros.
 //
@@ -43,77 +54,16 @@
 // right after the launch, so the Python wrapper can raise on a launch
 // that never ran.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "asym_tile.cuh"
 
 namespace {
 
-constexpr int TB = 8;                       // queries per block
-constexpr int THREADS = 256;                // threads per block
-constexpr int WARPS = THREADS / 32;
+using namespace asym_tile;
+
 constexpr int SIM_DOCS = 4;                 // docs per thread, similarity
 constexpr int SEGS_PER_WARP = 4;            // segments per warp, segment sum
 constexpr int SEGS_PER_BLOCK = WARPS * SEGS_PER_WARP;
-
-// proj_t[j * TB + b] = q[q0 + b] . planes[j]   (zero for padding rows)
-__device__ void project_tile(const float* __restrict__ q,
-                             const float* __restrict__ planes,
-                             int B, int dim, int bits, int q0,
-                             float* proj_t, float* q_s) {
-  const int nb = min(TB, B - q0);
-  for (int i = threadIdx.x; i < TB * dim; i += blockDim.x) {
-    const int b = i / dim;
-    q_s[i] = (b < nb) ? q[(size_t)(q0 + b) * dim + (i - b * dim)] : 0.f;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < bits; j += blockDim.x) {
-    float acc[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) acc[b] = 0.f;
-    const float* row = planes + (size_t)j * dim;
-    for (int d = 0; d < dim; ++d) {
-      const float p = __ldg(row + d);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) acc[b] = fmaf(q_s[b * dim + d], p, acc[b]);
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) proj_t[j * TB + b] = acc[b];
-  }
-  __syncthreads();
-}
-
-// dot[b] = sum_j sign_j(row) * proj[b][j] over the first 32*nwords bits
-__device__ __forceinline__ void doc_dots(const uint32_t* __restrict__ row,
-                                         int nwords,
-                                         const float4* __restrict__ proj4,
-                                         float (&dot)[TB]) {
-#pragma unroll
-  for (int b = 0; b < TB; ++b) dot[b] = 0.f;
-  for (int k = 0; k < nwords; ++k) {
-    const uint32_t w = __ldg(row + k);
-    const float4* p = proj4 + (size_t)k * 32 * (TB / 4);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float s = ((w >> j) & 1u) ? 1.f : -1.f;
-      const float4 lo = p[2 * j];
-      const float4 hi = p[2 * j + 1];
-      dot[0] = fmaf(s, lo.x, dot[0]);
-      dot[1] = fmaf(s, lo.y, dot[1]);
-      dot[2] = fmaf(s, lo.z, dot[2]);
-      dot[3] = fmaf(s, lo.w, dot[3]);
-      dot[4] = fmaf(s, hi.x, dot[4]);
-      dot[5] = fmaf(s, hi.y, dot[5]);
-      dot[6] = fmaf(s, hi.z, dot[6]);
-      dot[7] = fmaf(s, hi.w, dot[7]);
-    }
-  }
-}
-
-__device__ __forceinline__ float exp_sim(float dot, float scale,
-                                         float temperature) {
-  const float c = fminf(fmaxf(dot * scale, -1.f), 1.f);
-  return expf(temperature * c);
-}
+constexpr int TOPK_TILES = 8;               // tiles per block, top-k
 
 __global__ void __launch_bounds__(THREADS)
 asym_sim_kernel(const float* __restrict__ q, const float* __restrict__ planes,
@@ -162,53 +112,70 @@ asym_segsum_kernel(const float* __restrict__ q,
     const int lo = max(0, offsets[s]);
     const int hi = min(M, offsets[s + 1]);
     float acc[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) acc[b] = 0.f;
-    for (int m = lo + lane; m < hi; m += 32) {
-      float dot[TB];
-      doc_dots(db + (size_t)m * W, nwords, smem4, dot);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) acc[b] += exp_sim(dot[b], scale, temperature);
-    }
-    // fixed-shape butterfly: every lane ends with the same total
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-    }
+    slot_sum(db, lo, hi, W, nwords, smem4, scale, temperature, acc);
 #pragma unroll
     for (int b = 0; b < TB; ++b)
       if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];
   }
 }
 
-size_t smem_bytes(int bits, int dim) {
-  return ((size_t)bits * TB + (size_t)TB * dim) * sizeof(float);
+__global__ void __launch_bounds__(THREADS)
+asym_topk_kernel(const float* __restrict__ q, const float* __restrict__ planes,
+                 const uint32_t* __restrict__ db, float* __restrict__ vals_out,
+                 int* __restrict__ idx_out, int B, int dim, int bits, int M,
+                 int W, int n_tiles, int tm, int K, float scale,
+                 float temperature) {
+  extern __shared__ float4 smem4[];
+  float* proj_t = reinterpret_cast<float*>(smem4);
+  float* q_s = proj_t + (size_t)bits * TB;
+  float* vals = q_s + (size_t)TB * dim;
+  int* idx = reinterpret_cast<int*>(vals + (size_t)TB * tm);
+  const int q0 = blockIdx.y * TB;
+  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
+  const int nb = min(TB, B - q0);
+  const int nwords = bits / 32;
+  const size_t row_len = (size_t)n_tiles * K;
+  for (int t = 0; t < TOPK_TILES; ++t) {
+    const int tile = blockIdx.x * TOPK_TILES + t;
+    if (tile >= n_tiles) break;              // uniform across the block
+    score_tile(db, W, nwords, smem4, scale, temperature, tile * tm, tm,
+               [M](int row) { return row < M; }, vals, idx);
+    bitonic_sort_desc(vals, idx, TB, tm);
+    for (int e = threadIdx.x; e < TB * K; e += blockDim.x) {
+      const int b = e / K;
+      const int r = e - b * K;
+      if (b < nb) {
+        const size_t o = (size_t)(q0 + b) * row_len + (size_t)tile * K + r;
+        vals_out[o] = vals[b * tm + r];
+        idx_out[o] = idx[b * tm + r];
+      }
+    }
+    __syncthreads();                         // the next tile reuses vals
+  }
 }
 
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
-}
+size_t sim_smem_bytes(int bits, int dim) { return smem_bytes(bits, dim, 0); }
 
 }  // namespace
 
 extern "C" {
 
-// Query tile size of both kernels (the wrappers read it for grid limits).
+// Query tile size of the kernels (the wrappers read it for grid limits).
 int asym_query_tile() { return TB; }
+
+// Shared memory of one top-k block at these widths, and the device's
+// per-block limit (the wrapper raises past it).
+size_t asym_topk_smem(int bits, int dim, int tm) {
+  return smem_bytes(bits, dim, tm);
+}
+int asym_smem_limit() { return smem_limit(); }
 
 int asym_exp_similarity_launch(const float* q, const float* planes,
                                const uint32_t* db, float* out, int B, int dim,
                                int bits, int M, int W, float scale,
                                float temperature, void* stream) {
   cudaGetLastError();  // clear a stale error so the code below is ours
-  const size_t smem = smem_bytes(bits, dim);
+  const size_t smem = sim_smem_bytes(bits, dim);
   cudaError_t err = prepare(asym_sim_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + THREADS * SIM_DOCS - 1) / (THREADS * SIM_DOCS),
@@ -224,13 +191,30 @@ int asym_exp_segment_sum_launch(const float* q, const float* planes,
                                 int W, int S, float scale, float temperature,
                                 void* stream) {
   cudaGetLastError();
-  const size_t smem = smem_bytes(bits, dim);
+  const size_t smem = sim_smem_bytes(bits, dim);
   cudaError_t err = prepare(asym_segsum_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + SEGS_PER_BLOCK - 1) / SEGS_PER_BLOCK,
                   (B + TB - 1) / TB);
   asym_segsum_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, planes, db, offsets, out, B, dim, bits, M, W, S, scale, temperature);
+  return (int)cudaGetLastError();
+}
+
+int asym_exp_topk_launch(const float* q, const float* planes,
+                         const uint32_t* db, float* vals, int* idx, int B,
+                         int dim, int bits, int M, int W, int tm, int K,
+                         float scale, float temperature, void* stream) {
+  cudaGetLastError();
+  const size_t smem = smem_bytes(bits, dim, tm);
+  cudaError_t err = prepare(asym_topk_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (M + tm - 1) / tm;
+  const dim3 grid((n_tiles + TOPK_TILES - 1) / TOPK_TILES,
+                  (B + TB - 1) / TB);
+  asym_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      q, planes, db, vals, idx, B, dim, bits, M, W, n_tiles, tm, K, scale,
+      temperature);
   return (int)cudaGetLastError();
 }
 

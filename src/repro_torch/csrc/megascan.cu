@@ -1,0 +1,169 @@
+// One-launch megascan kernels for Hopper (sm_90a): the asym scan of a
+// host's whole shard group over the block-aligned packed payload
+// (repro_torch/kernels/megascan/ops.py::build_payload: every shard's
+// rows padded to TM-row blocks and concatenated, padding rows carry an
+// out-of-range slot).
+//
+// Replaces three Pallas TPU kernels of the JAX package:
+//   * src/repro/kernels/megascan/kernel.py,
+//     asym_megascan_segsum_db_kernel (bodies _asym_segsum_db_body,
+//     _segsum_block): per-(query, shard-slot) sums of
+//     exp(beta * asym-cos) over the payload in one launch, [B, S];
+//   * src/repro/kernels/megascan/kernel.py, asym_megascan_topk_kernel
+//     (bodies _asym_topk_stream_body, _topk_block, bitonic_sort_desc)
+//     and asym_megascan_topk_db_kernel (body _asym_topk_db_body): per
+//     TM block, each query's K best (value, payload position), value
+//     descending then position ascending, padding rows -inf.  The two
+//     TPU kernels differ only in their data-movement schedule and
+//     give the same candidates; this one kernel ports both.
+//
+// What bounds them on the card: as for asym.cu, the fp32 sign product
+// (2 * bits operations per query and real row) — and, in the top-k,
+// its sort network (per block and query, TM/2 * log2(TM) *
+// (log2(TM) + 1) / 2 compare-exchanges in shared memory, whatever the
+// number of real rows).  Bytes are the real rows' signatures, bits/8
+// per row, read once per query tile.
+//
+// What the design does about it:
+//   * padding is most of the payload at real scale (shards of ~26 docs
+//     padded to 256 rows): the sum kernel never reads it — a warp owns
+//     one slot and walks only its real rows [row_start, row_start +
+//     count), with the slice-1 per-slot sum (slot_sum in
+//     asym_tile.cuh).  So a slot's sum depends only on its own rows in
+//     a fixed order, and three properties hold by construction, bit
+//     for bit: group launch == per-shard launch, this kernel == the
+//     slice-1 segment sum over the same slot map, and run to run.
+//     Empty slots give exact zeros;
+//   * the top-k kernel reads a row's signature only where its slot is
+//     real, and masks the rest to -inf before the sort;
+//   * a block computes its TB-query projection once into shared memory
+//     and serves SLOTS_PER_WARP slots per warp (sum) or TOPK_BLOCKS
+//     payload blocks (top-k).
+// The TPU's 2-slot DMA ring is a data-movement schedule; this first
+// port reads signatures straight from device memory (no cp.async/TMA
+// pipeline).
+//
+// The entry points take plain pointers and return cudaGetLastError()
+// right after the launch.
+
+#include "asym_tile.cuh"
+
+namespace {
+
+using namespace asym_tile;
+
+constexpr int SLOTS_PER_WARP = 4;           // slots per warp, sum
+constexpr int SLOTS_PER_BLOCK = WARPS * SLOTS_PER_WARP;
+constexpr int TOPK_BLOCKS = 8;              // payload blocks per block, top-k
+
+__global__ void __launch_bounds__(THREADS)
+megascan_segsum_kernel(const float* __restrict__ q,
+                       const float* __restrict__ planes,
+                       const uint32_t* __restrict__ sig,
+                       const int* __restrict__ row_start,
+                       const int* __restrict__ row_count,
+                       float* __restrict__ out, int B, int dim, int bits,
+                       int n_rows, int W, int S, float scale,
+                       float temperature) {
+  extern __shared__ float4 smem4[];
+  float* proj_t = reinterpret_cast<float*>(smem4);
+  float* q_s = proj_t + (size_t)bits * TB;
+  const int q0 = blockIdx.y * TB;
+  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
+  const int nb = min(TB, B - q0);
+  const int nwords = bits / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int s_first = blockIdx.x * SLOTS_PER_BLOCK + warp * SLOTS_PER_WARP;
+  for (int i = 0; i < SLOTS_PER_WARP; ++i) {
+    const int s = s_first + i;
+    if (s >= S) break;                       // uniform across the warp
+    const int lo = max(0, row_start[s]);
+    const int hi = (int)min((long long)n_rows,
+                            (long long)row_start[s] + row_count[s]);
+    float acc[TB];
+    slot_sum(sig, lo, hi, W, nwords, smem4, scale, temperature, acc);
+#pragma unroll
+    for (int b = 0; b < TB; ++b)
+      if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+megascan_topk_kernel(const float* __restrict__ q,
+                     const float* __restrict__ planes,
+                     const uint32_t* __restrict__ sig,
+                     const int* __restrict__ slots,
+                     float* __restrict__ vals_out, int* __restrict__ pos_out,
+                     int B, int dim, int bits, int W, int n_blocks, int tm,
+                     int K, int n_valid, float scale, float temperature) {
+  extern __shared__ float4 smem4[];
+  float* proj_t = reinterpret_cast<float*>(smem4);
+  float* q_s = proj_t + (size_t)bits * TB;
+  float* vals = q_s + (size_t)TB * dim;
+  int* idx = reinterpret_cast<int*>(vals + (size_t)TB * tm);
+  const int q0 = blockIdx.y * TB;
+  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
+  const int nb = min(TB, B - q0);
+  const int nwords = bits / 32;
+  const size_t row_len = (size_t)n_blocks * K;
+  for (int t = 0; t < TOPK_BLOCKS; ++t) {
+    const int j = blockIdx.x * TOPK_BLOCKS + t;
+    if (j >= n_blocks) break;                // uniform across the block
+    score_tile(sig, W, nwords, smem4, scale, temperature, j * tm, tm,
+               [slots, n_valid](int row) { return slots[row] < n_valid; },
+               vals, idx);
+    bitonic_sort_desc(vals, idx, TB, tm);
+    for (int e = threadIdx.x; e < TB * K; e += blockDim.x) {
+      const int b = e / K;
+      const int r = e - b * K;
+      if (b < nb) {
+        const size_t o = (size_t)(q0 + b) * row_len + (size_t)j * K + r;
+        vals_out[o] = vals[b * tm + r];
+        pos_out[o] = idx[b * tm + r];
+      }
+    }
+    __syncthreads();                         // the next block reuses vals
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int megascan_segsum_launch(const float* q, const float* planes,
+                           const uint32_t* sig, const int* row_start,
+                           const int* row_count, float* out, int B, int dim,
+                           int bits, int n_rows, int W, int S, float scale,
+                           float temperature, void* stream) {
+  cudaGetLastError();  // clear a stale error so the code below is ours
+  const size_t smem = smem_bytes(bits, dim, 0);
+  cudaError_t err = prepare(megascan_segsum_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + SLOTS_PER_BLOCK - 1) / SLOTS_PER_BLOCK,
+                  (B + TB - 1) / TB);
+  megascan_segsum_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      q, planes, sig, row_start, row_count, out, B, dim, bits, n_rows, W, S,
+      scale, temperature);
+  return (int)cudaGetLastError();
+}
+
+int megascan_topk_launch(const float* q, const float* planes,
+                         const uint32_t* sig, const int* slots, float* vals,
+                         int* pos, int B, int dim, int bits, int n_rows,
+                         int W, int tm, int K, int n_valid, float scale,
+                         float temperature, void* stream) {
+  cudaGetLastError();
+  const size_t smem = smem_bytes(bits, dim, tm);
+  cudaError_t err = prepare(megascan_topk_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_blocks = n_rows / tm;
+  const dim3 grid((n_blocks + TOPK_BLOCKS - 1) / TOPK_BLOCKS,
+                  (B + TB - 1) / TB);
+  megascan_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      q, planes, sig, slots, vals, pos, B, dim, bits, W, n_blocks, tm, K,
+      n_valid, scale, temperature);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

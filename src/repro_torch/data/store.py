@@ -263,6 +263,29 @@ def segment_sum_by_offsets(values: np.ndarray, offsets: np.ndarray) -> np.ndarra
     return out
 
 
+def plan_blocked_layout(counts: Sequence[int], block: int
+                        ) -> "tuple[np.ndarray, np.ndarray, int]":
+    """Row layout for a block-aligned packed multi-segment payload
+    (the megascan's input contract, kernels/megascan): each segment's
+    rows are padded *independently* up to a multiple of ``block`` before
+    concatenation, so every ``block``-row slab belongs to exactly one
+    segment.  Returns ``(row_starts, blocks, total_rows)``: segment
+    ``i``'s real rows occupy ``[row_starts[i], row_starts[i] +
+    counts[i])``, it owns ``blocks[i]`` slabs, and the packed array has
+    ``total_rows`` rows in all.  Empty segments get zero slabs (they
+    occupy no rows at all, not an empty padded slab)."""
+    counts = np.asarray(counts, np.int64)
+    if block <= 0:
+        raise ValueError(f"block size must be positive, got {block}")
+    if (counts < 0).any():
+        raise ValueError("segment counts must be non-negative")
+    blocks = -(-counts // block)
+    row_starts = np.zeros(counts.shape[0], np.int64)
+    if counts.shape[0] > 1:
+        np.cumsum(blocks[:-1] * block, out=row_starts[1:])
+    return row_starts, blocks, int(blocks.sum() * block)
+
+
 # ----------------------------------------------------------------------
 # per-shard CSR postings (lazily built, cached on the shard)
 # ----------------------------------------------------------------------

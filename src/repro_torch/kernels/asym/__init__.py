@@ -1,1 +1,2 @@
-"""Batched asymmetric-LSH exp-similarity: similarity and segment sum."""
+"""Batched asymmetric-LSH exp-similarity: similarity, segment sum and
+per-tile top-k."""

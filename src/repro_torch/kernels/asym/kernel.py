@@ -10,6 +10,11 @@
     sums of the same values over CSR-sorted rows, [B, S] float32; the
     [B, M] intermediate never reaches device memory and the sum is
     bitwise deterministic (no float atomics).
+  * ``asym_topk_kernel`` replaces
+    ``kernels/asym/kernel.py::asym_topk_kernel``: per tile of
+    ``topk_tile(k)`` docs, each query's k best (value, global doc
+    index), value descending and ties by ascending index; [B, J*k]
+    float32 values and int32 indices, J the number of tiles.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take, allocates its output with
@@ -42,6 +47,13 @@ def _lib() -> ctypes.CDLL:
         lib.asym_exp_segment_sum_launch.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         lib.asym_exp_segment_sum_launch.restype = _I
+        lib.asym_exp_topk_launch.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+        lib.asym_exp_topk_launch.restype = _I
+        lib.asym_topk_smem.argtypes = [_I, _I, _I]
+        lib.asym_topk_smem.restype = ctypes.c_size_t
+        lib.asym_smem_limit.argtypes = []
+        lib.asym_smem_limit.restype = _I
         lib._asym_typed = True
     return lib
 
@@ -77,6 +89,24 @@ def _scale(bits: int) -> float:
     return 1.0 / (bits * math.sqrt(2.0 / math.pi))
 
 
+def _check_grid(b: int) -> None:
+    """Raise if B queries need more query tiles than one launch has."""
+    if -(-b // _lib().asym_query_tile()) > _GRID_Y_MAX:
+        raise ValueError(f"too many queries for one launch: B={b}")
+
+
+def _check_smem(bits: int, dim: int, tm: int, what: str) -> None:
+    """Raise if a ``tm``-row top-k tile (``asym_tile.cuh``, shared by
+    every top-k kernel) does not fit in a block's shared memory."""
+    lib = _lib()
+    smem, limit = lib.asym_topk_smem(bits, dim, tm), lib.asym_smem_limit()
+    if smem > limit:
+        raise ValueError(
+            f"{what} needs {smem} bytes of shared memory per block at "
+            f"bits={bits}, dim={dim}, over this device's limit of {limit} "
+            f"bytes")
+
+
 def asym_similarity_kernel(q: torch.Tensor, planes: torch.Tensor,
                            db: torch.Tensor, bits: int, *,
                            temperature: float = 1.0) -> torch.Tensor:
@@ -86,10 +116,8 @@ def asym_similarity_kernel(q: torch.Tensor, planes: torch.Tensor,
     out = torch.empty((b, m), dtype=torch.float32, device=q.device)
     if b == 0 or m == 0:
         return out
-    lib = _lib()
-    if -(-b // lib.asym_query_tile()) > _GRID_Y_MAX:
-        raise ValueError(f"too many queries for one launch: B={b}")
-    rc = lib.asym_exp_similarity_launch(
+    _check_grid(b)
+    rc = _lib().asym_exp_similarity_launch(
         q.data_ptr(), planes.data_ptr(), db.data_ptr(), out.data_ptr(),
         b, dim, bits, m, w, _scale(bits), float(temperature),
         common.stream_ptr(q.device))
@@ -119,10 +147,8 @@ def asym_segment_sum_kernel(q: torch.Tensor, planes: torch.Tensor,
     out = torch.empty((b, s), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out
-    lib = _lib()
-    if -(-b // lib.asym_query_tile()) > _GRID_Y_MAX:
-        raise ValueError(f"too many queries for one launch: B={b}")
-    rc = lib.asym_exp_segment_sum_launch(
+    _check_grid(b)
+    rc = _lib().asym_exp_segment_sum_launch(
         q.data_ptr(), planes.data_ptr(), db_sorted.data_ptr(),
         seg_offsets.data_ptr(), out.data_ptr(),
         b, dim, bits, m, w, s, _scale(bits), float(temperature),
@@ -133,3 +159,43 @@ def asym_segment_sum_kernel(q: torch.Tensor, planes: torch.Tensor,
 
 
 asym_segment_sum_kernel.launches = 0
+
+
+def topk_tile(k: int) -> int:
+    """Docs per tile of the top-k kernel: a power of two, at least 256
+    and at least k."""
+    return max(256, 1 << max(0, int(k) - 1).bit_length())
+
+
+def asym_topk_kernel(q: torch.Tensor, planes: torch.Tensor,
+                     db: torch.Tensor, bits: int, k: int, *,
+                     temperature: float = 1.0
+                     ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """[B, dim] unit rows x [M, W] packed int32 -> per-tile top-k
+    candidates ([B, J*k] float32 values, [B, J*k] int32 doc indices),
+    J = ceil(M / topk_tile(k)), on the hand-written CUDA kernel.  A
+    tile is sorted in shared memory; a k whose tile does not fit there
+    raises."""
+    b, dim, m, w = _check(q, planes, db, bits)
+    if not 0 < k <= m:
+        raise ValueError(f"k={k} must be in [1, M={m}]")
+    tm = topk_tile(k)
+    n_tiles = -(-m // tm)
+    vals = torch.empty((b, n_tiles * k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n_tiles * k), dtype=torch.int32, device=q.device)
+    if b == 0:
+        return vals, idx
+    _check_grid(b)
+    if m + tm > _INT32_MAX:
+        raise ValueError(f"too many rows for int32 indexing: M={m}")
+    _check_smem(bits, dim, tm, f"k={k}'s {tm}-doc tile")
+    rc = _lib().asym_exp_topk_launch(
+        q.data_ptr(), planes.data_ptr(), db.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), b, dim, bits, m, w, tm, k, _scale(bits),
+        float(temperature), common.stream_ptr(q.device))
+    common.check_launch(rc, "asym_exp_topk")
+    asym_topk_kernel.launches += 1
+    return vals, idx
+
+
+asym_topk_kernel.launches = 0

@@ -5,8 +5,8 @@ Query rows are unit-normalised here (``max(norm, 1e-9)``), then the
 call goes by where the tensors lie: CUDA tensors launch the
 hand-written kernels (``kernel.py``), CPU tensors take the plain
 versions (``ref.py``).  The TPU wrappers' tile arguments (``tb``,
-``tm``) have no counterpart: the CUDA kernels mask their ragged edges
-themselves, so nothing is padded.
+``tm``) and ``pad_lanes`` have no counterpart: the CUDA kernels mask
+their ragged edges themselves, so neither rows nor K are padded.
 
 The segment sum takes any doc -> slot map: ``segment_csr`` sorts the
 rows by slot (stably) and builds CSR offsets, and slots outside
@@ -90,3 +90,34 @@ def asym_exp_segment_sum_csr(query_vecs: torch.Tensor,
     return _ref.asym_exp_segment_sum_csr_ref(
         q, db_sorted, planes.to(torch.float32), bits, seg_offsets,
         temperature)
+
+
+def asym_exp_topk(query_vecs: torch.Tensor, db_packed: torch.Tensor,
+                  planes: torch.Tensor, bits: int, k: int, *,
+                  temperature: float = 1.0
+                  ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Fused scoring + ranked reduction: ([B, k] int32 doc indices,
+    [B, k] float32 values), k = min(k, M), each row descending with
+    ties to the lowest doc index (the order of ``jax.lax.top_k``).
+    Stage 1 (the kernel, or its plain version) keeps each tile's top-k;
+    stage 2, here, is a stable sort of the [B, ceil(M/TM)*k]
+    candidates — tile order, then rank in tile, so ties still go to the
+    lowest index.  The [B, M] matrix never reaches device memory."""
+    q = _prep_queries(query_vecs)
+    k = min(int(k), db_packed.shape[0])
+    if k <= 0:
+        return (torch.zeros((q.shape[0], 0), dtype=torch.int32,
+                            device=q.device),
+                torch.zeros((q.shape[0], 0), dtype=torch.float32,
+                            device=q.device))
+    planes = planes.to(torch.float32)
+    if common.on_cuda(q, db_packed, planes):
+        vals, idx = _k.asym_topk_kernel(
+            q.contiguous(), planes.contiguous(), db_packed.contiguous(),
+            bits, k, temperature=temperature)
+    else:
+        vals, idx = _ref.asym_topk_candidates_ref(
+            q, db_packed, planes, bits, k, _k.topk_tile(k), temperature)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    order = order[:, :k]
+    return idx.gather(1, order), vals.gather(1, order)

@@ -12,10 +12,11 @@ Kernel libraries are built from ``csrc/<name>.cu`` with ``nvcc`` into
 ``build/kernels/`` at the root of the checkout, on first use, and loaded
 with ``ctypes`` (plain C entry points: pointers, ints and the stream as
 ``c_void_p``/``c_int``).  A library's file name carries the hash of its
-source and flags, so an edited source is rebuilt and a stale library
-is never loaded.  Importing this module builds and loads nothing: the
-build happens at the first launch on a CUDA tensor, or when a caller
-asks for it (``build_all``).
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+Importing this module builds and loads nothing: the build happens at
+the first launch on a CUDA tensor, or when a caller asks for it
+(``build_all``).
 """
 from __future__ import annotations
 
@@ -77,8 +78,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by the hash of that
+    source, every shared header ``csrc/*.cuh`` it may include, and the
+    flags: an edit to any of them names a new library."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -54,9 +54,14 @@ per-shard-task hook carrying the executor's job index, so a scripted
 fault plan can target "shard tasks during jobs 3..5" without keeping
 its own clock.  ``job_hook(job)`` fires once at job start.
 
-This is the serving runtime of the JAX package's
-``runtime/executor.py`` without its one-launch megascan route, which
-arrives with the megascan kernel.
+One-launch megascan route (``megakernel``): when the scan fns come from
+one ``kernels/megascan`` ``MegascanSpec``, the whole shard group runs as
+ONE kernel launch (``_run_group_scan``) instead of one task per shard,
+with the per-(query, shard) results in the same layout and bit for bit
+the per-shard route's.  This is the serving runtime of the JAX
+package's ``runtime/executor.py``; its ``HostGroupExecutor`` (placement
+across hosts) is not ported yet, and ``run_shared_scan`` stays generic
+over the mapper so it can plug in.
 
 Completions are tagged with a *job epoch*: a job abandoned at its
 deadline leaves speculative/stalled futures running on the warm pool,
@@ -98,19 +103,52 @@ def run_shared_scan(
     corpus,
     plan: Sequence[Sequence[int]],
     fns: Sequence[Callable[[Any], Any]],
+    *,
+    megakernel: Optional[bool] = None,
 ) -> "list[Dict[int, Any]]":
     """The full shared-scan schedule over any ``map_shards``-shaped
     mapper: invert the per-query plans, visit each union shard once
     (evaluating every interested query in that visit), and scatter the
     per-shard composites back into one ``{shard_id: result}`` dict per
-    query."""
+    query.
+
+    When every fn carries the same ``kernels/megascan`` ``MegascanSpec``
+    (built via ``MegascanSpec.scan_fns()``), the composite shard task
+    becomes ``spec.run_shard`` — one launch per shard for all
+    interested queries — and, unless ``megakernel=False``, the composite
+    is tagged with the spec so a spec-aware mapper (a
+    megakernel-enabled ``ShardTaskExecutor``) can run its whole shard
+    group as ONE launch (``spec.run_group``).  The gather below is the
+    same either way, and the results are bit for bit equal across
+    routes.  ``megakernel=True`` asserts the fns are fusable (raises
+    otherwise); ``None`` auto-detects; ``False`` pins the per-shard
+    route (the parity reference)."""
     if len(plan) != len(fns):
         raise ValueError(f"plan/fns length mismatch: "
                          f"{len(plan)} != {len(fns)}")
     queries_of = invert_plan(plan)
 
-    def shared_scan(shard):
-        return {qi: fns[qi](shard) for qi in queries_of[shard.shard_id]}
+    spec = None
+    if fns:
+        cand = getattr(fns[0], "megascan", None)
+        if cand is not None and all(
+                getattr(f, "megascan", None) is cand for f in fns):
+            spec = cand
+    if megakernel is True and spec is None:
+        raise ValueError("megakernel=True requires scan fns built from "
+                         "one MegascanSpec (MegascanSpec.scan_fns())")
+
+    if spec is not None:
+        def shared_scan(shard):
+            return spec.run_shard(shard.shard_id,
+                                  queries_of[shard.shard_id])
+        if megakernel is not False:
+            shared_scan.megascan = spec
+            shared_scan.queries_of = queries_of
+    else:
+        def shared_scan(shard):
+            return {qi: fns[qi](shard)
+                    for qi in queries_of[shard.shard_id]}
 
     by_shard = mapper(corpus, sorted(queries_of), shared_scan)
     out: list = [{} for _ in plan]
@@ -137,8 +175,14 @@ class ShardTaskExecutor:
         allow_partial: bool = False,
         task_hook: Optional[Callable[[int, int, int], None]] = None,
         job_hook: Optional[Callable[[int], None]] = None,
+        megakernel: bool = True,
     ):
         self.workers = workers
+        # Spec-tagged shared scans (kernels/megascan MegascanSpec) run
+        # the whole shard group as ONE launch instead of one composite
+        # task per shard; False pins the per-shard route (the parity
+        # reference).
+        self.megakernel = bool(megakernel)
         self.max_retries = max_retries
         self.straggler_factor = straggler_factor
         self.min_completed = min_completed_for_speculation
@@ -168,7 +212,8 @@ class ShardTaskExecutor:
         self.stats: Dict[str, int] = {"retries": 0, "speculative": 0,
                                       "jobs": 0, "pool_rebuilds": 0,
                                       "lost_shards": 0,
-                                      "stale_completions": 0}
+                                      "stale_completions": 0,
+                                      "megascan_jobs": 0}
         # job epoch: bumped at every job start; completion records are
         # tagged with it so futures abandoned by a deadline-expired job
         # are recognizably stale when they finish late.  The completions
@@ -260,7 +305,16 @@ class ShardTaskExecutor:
         waiter on every still-pending future each iteration — O(tasks^2)
         per job).  Straggler checks run on 50 ms ticks and on each
         completion.
+
+        A ``MegascanSpec``-tagged composite (see ``run_shared_scan``)
+        skips the per-shard fan-out: the whole group runs as ONE launch
+        (``_run_group_scan``) when this executor was built with
+        ``megakernel=True``.
         """
+        spec = getattr(fn, "megascan", None)
+        if spec is not None and self.megakernel:
+            with self._job_lock:
+                return self._run_group_scan(corpus, shard_ids, fn, spec)
         pool = self._acquire_pool()
         try:
             # jobs are serialized: the epoch guard on the shared
@@ -459,11 +513,84 @@ class ShardTaskExecutor:
         }
         return results
 
+    def _run_group_scan(self, corpus, shard_ids: Sequence[int], fn,
+                        spec) -> Dict[int, Any]:
+        """One-launch megakernel route: the whole shard group is a
+        single composite task (``spec.run_group``, one launch over the
+        packed multi-shard payload) instead of one task per shard.  The
+        fault seams keep their per-shard granularity — ``fault_hook``
+        and ``task_hook`` fire for every shard in the group before the
+        launch, so chaos scripts targeting single shards still bite —
+        but failure and retry are at-least-once at *group* granularity:
+        any hook raise or launch failure re-runs the whole group (with
+        the same bounded exponential backoff)."""
+        ids = [int(s) for s in shard_ids]
+        t_job = time.perf_counter()
+        deadline = (t_job + self.job_deadline_s
+                    if self.job_deadline_s is not None else None)
+        self._job_epoch += 1
+        job = self.stats["jobs"]
+        if self.job_hook is not None:
+            self.job_hook(job)
+        queries_of = getattr(fn, "queries_of", None)
+        if queries_of is None:
+            queries_of = {sid: [] for sid in ids}
+        attempt = 0
+        lost: list = []
+        results: Dict[int, Any] = {}
+        while True:
+            attempt += 1
+            try:
+                for sid in ids:
+                    if self.fault_hook is not None:
+                        self.fault_hook(sid, attempt)
+                    if self.task_hook is not None:
+                        self.task_hook(sid, attempt, job)
+                results = spec.run_group(ids, queries_of)
+                break
+            except Exception as exc:
+                if attempt > self.max_retries:
+                    raise ShardTaskError(
+                        f"megascan group {ids} failed after "
+                        f"{attempt} attempts") from exc
+                self.stats["retries"] += 1
+                delay = 0.0
+                if self.retry_backoff_s > 0.0:
+                    delay = min(self.retry_backoff_cap_s,
+                                self.retry_backoff_s * 2.0 ** (attempt - 1))
+                if deadline is not None and (
+                        time.perf_counter() + delay >= deadline):
+                    if self.allow_partial:
+                        lost = list(ids)
+                        break
+                    raise ShardTaskError(
+                        f"job deadline ({self.job_deadline_s}s) expired; "
+                        f"megascan group incomplete: {ids}") from exc
+                if delay > 0.0:
+                    time.sleep(delay)
+        self.stats["lost_shards"] += len(lost)
+        self.stats["jobs"] += 1
+        self.stats["megascan_jobs"] += 1
+        wall = time.perf_counter() - t_job
+        # with one launch for the group, the per-shard attribution is
+        # the launch wall spread over its shards
+        self.last_job = {
+            "wall_s": wall,
+            "tasks": float(len(ids)),
+            "median_task_s": wall / max(1, len(ids)),
+            "lost_shards": float(len(lost)),
+        }
+        if spec.last_record is not None and not lost:
+            self.last_job["megascan"] = dict(spec.last_record)
+        return results
+
     def map_shard_batch(
         self,
         corpus,
         plan: Sequence[Sequence[int]],
         fns: Sequence[Callable[[Any], Any]],
+        *,
+        megakernel: Optional[bool] = None,
     ) -> "list[Dict[int, Any]]":
         """Shared scan over a batch of queries.
 
@@ -474,5 +601,11 @@ class ShardTaskExecutor:
         visited once, with all interested queries evaluated in that
         single visit.  Retry and straggler speculation are inherited
         from ``map_shards`` at composite-task granularity.
+
+        ``megakernel`` (None = auto): when the fns come from one
+        ``MegascanSpec``, run the whole union as ONE launch (see
+        ``run_shared_scan``); ``False`` pins the per-shard route — the
+        bit-for-bit parity reference.
         """
-        return run_shared_scan(self.map_shards, corpus, plan, fns)
+        return run_shared_scan(self.map_shards, corpus, plan, fns,
+                               megakernel=megakernel)

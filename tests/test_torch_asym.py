@@ -138,3 +138,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tkernel.asym_segment_sum_kernel(
             tq, tp, tdb, torch.zeros(3, dtype=torch.int32), 64)
     assert tkernel.asym_similarity_kernel.launches == before
+
+
+@pytest.mark.parametrize("b,bits", [(1, 64), (5, 128), (48, 256), (63, 256)])
+def test_row_scores_do_not_depend_on_position_or_row_count(b, bits):
+    """``exp_sim_rows`` gives a row the same bits wherever it sits in a
+    block and however many rows come with it, the property the CPU's
+    group == per-shard and streamed == pipelined rest on."""
+    _, q, planes, db = _setup(b, 700, 32, bits, seed=b + bits)
+    tq, tp, tdb = _t(q, planes, db)
+    whole = tref.exp_sim_rows(tq, tdb, tp, bits, 8.0)
+    for lo, hi in ((0, 1), (3, 40), (37, 700), (500, 513), (511, 700)):
+        part = tref.exp_sim_rows(tq, tdb[lo:hi], tp, bits, 8.0)
+        assert torch.equal(part, whole[:, lo:hi])
+    np.testing.assert_allclose(
+        whole.numpy(), tref.asym_exp_similarity_ref(tq, tdb, tp, bits,
+                                                    8.0).numpy(), rtol=1e-5)

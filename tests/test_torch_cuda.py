@@ -17,6 +17,8 @@ from repro_torch.data.store import ShardedCorpus
 from repro_torch.kernels.asym import kernel as tkernel
 from repro_torch.kernels.asym import ops as tops
 from repro_torch.kernels.asym import ref as tref
+from repro_torch.testing import (assert_ids_equal_away_from_ties,
+                                 ragged_segments)
 
 
 @pytest.fixture
@@ -105,3 +107,89 @@ def test_cuda_index_scores_through_the_kernels(cuda_device):
                                rtol=1e-4)
     np.testing.assert_allclose(single, cpu.shard_similarities(queries[0]),
                                rtol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# slice 2: the fused top-k and the megascan kernels
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,dim,bits,temp", [
+    (3, 257, 10, 48, 128, 8.0), (5, 100, 100, 32, 64, 4.0),
+    (2, 700, 300, 24, 128, 1.0), (2, 50, 7, 24, 64, 2.0),
+    (48, 20000, 10, 64, 256, 8.0),
+])
+def test_cuda_topk_matches_plain(cuda_device, b, m, k, dim, bits, temp):
+    _, q, planes, db = _setup(b, m, dim, bits, b + m + k, cuda_device)
+    n = tkernel.asym_topk_kernel.launches
+    idx, vals = tops.asym_exp_topk(q, db, planes, bits, k, temperature=temp)
+    idx2, vals2 = tops.asym_exp_topk(q, db, planes, bits, k,
+                                     temperature=temp)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx2) and torch.equal(vals, vals2)
+    assert tkernel.asym_topk_kernel.launches == n + 2
+    qn = tops._prep_queries(q)
+    kk = min(k, m)
+    cv, ci = tkernel.asym_topk_kernel(qn, planes, db, bits, kk,
+                                      temperature=temp)
+    rv, ri = tref.asym_topk_candidates_ref(qn, db, planes, bits, kk,
+                                           tkernel.topk_tile(kk), temp)
+    torch.testing.assert_close(cv, rv, rtol=1e-4, atol=0)
+    assert_ids_equal_away_from_ties(ci, ri, rv)
+    ridx, rvals = tref.asym_exp_topk_ref(qn, db, planes, bits, k, temp)
+    torch.testing.assert_close(vals, rvals, rtol=1e-4, atol=0)
+    assert_ids_equal_away_from_ties(idx, ridx, rvals)
+
+
+RAGGED = (13, 8, 1, 0, 27, 64, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,tm,dup", [
+    (RAGGED, 8, False), (RAGGED, 16, False), ((300, 40, 9), 256, False),
+    (RAGGED, 16, True),
+])
+def test_cuda_megascan_matches_plain_and_is_bitwise(cuda_device, counts, tm,
+                                                    dup):
+    from repro_torch.kernels.megascan import kernel as mker
+    from repro_torch.kernels.megascan import ops as mops
+    from repro_torch.kernels.megascan import ref as mref
+    segs, q, planes = ragged_segments(counts, 16, 64, tm + len(counts), dup)
+    pay = mops.build_payload(segs, tm=tm, device=cuda_device)
+    n_sum = mker.asym_megascan_segsum_kernel.launches
+    n_top = mker.asym_megascan_topk_kernel.launches
+    got = mops.megascan_segment_sums(pay, q, planes, 64, temperature=4.0)
+    assert np.array_equal(got, mops.megascan_segment_sums(
+        pay, q, planes, 64, temperature=4.0))            # run to run
+    streamed = mops.megascan_segment_sums(pay, q, planes, 64,
+                                          temperature=4.0,
+                                          double_buffer=False)
+    assert np.array_equal(got, streamed)                  # schedules
+    qn = tops._prep_queries(torch.from_numpy(q).to(cuda_device))
+    tp = torch.from_numpy(planes).to(cuda_device)
+    want = mref.asym_megascan_segsum_ref(qn, pay.sig, tp, 64, pay.row_start,
+                                         pay.row_count, 4.0)
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-4)
+    assert (got[:, np.asarray(counts) == 0] == 0).all()
+    ids, vals = mops.megascan_topk(pay, q, planes, 64, 5, temperature=4.0)
+    ids2, vals2 = mops.megascan_topk(pay, q, planes, 64, 5, temperature=4.0)
+    assert np.array_equal(ids, ids2) and np.array_equal(vals, vals2)
+    cpu = mops.build_payload(segs, tm=tm, device="cpu")
+    rids, rvals = mops.megascan_topk(cpu, q, planes, 64, 5, temperature=4.0)
+    finite = np.isfinite(rvals)
+    assert np.array_equal(np.isfinite(vals), finite)
+    np.testing.assert_allclose(vals[finite], rvals[finite], rtol=1e-4)
+    for s in range(len(counts)):
+        assert_ids_equal_away_from_ties(torch.from_numpy(ids[:, s]),
+                                  torch.from_numpy(rids[:, s]),
+                                  torch.from_numpy(rvals[:, s]))
+    assert mker.asym_megascan_segsum_kernel.launches == n_sum + 2
+    assert mker.asym_megascan_topk_kernel.launches == n_top + 2
+    # group == single-shard payload, bit for bit, in both modes
+    for s, seg in enumerate(segs):
+        one = mops.build_payload([seg], tm=tm, device=cuda_device)
+        single = mops.megascan_segment_sums(one, q, planes, 64,
+                                            temperature=4.0)
+        assert np.array_equal(got[:, s], single[:, 0])
+        i1, v1 = mops.megascan_topk(one, q, planes, 64, 5, temperature=4.0)
+        assert np.array_equal(ids[:, s], i1[:, 0])
+        assert np.array_equal(vals[:, s], v1[:, 0])

@@ -32,7 +32,7 @@ for name in names:
     importlib.import_module(name)
 from repro_torch.kernels import common
 assert not common._libs, "a kernel library was loaded at import"
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -41,7 +41,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 24
+    assert {"repro_torch.kernels.megascan", "repro_torch.kernels.megascan.ops",
+            "repro_torch.kernels.megascan.kernel",
+            "repro_torch.kernels.megascan.ref",
+            "repro_torch.kernels.asym.ops",
+            "repro_torch.runtime.executor"} <= names
 
 
 def _imported_roots(path: pathlib.Path):
@@ -96,3 +102,23 @@ def test_library_build_needs_nvcc_only_at_first_launch(monkeypatch):
         return
     with pytest.raises(RuntimeError, match="nvcc"):
         common.load_library("asym")
+
+
+def test_library_name_covers_every_shared_header(tmp_path, monkeypatch):
+    """An edit to a shared header alone names a new library, so a stale
+    build is never loaded; an edit to another source does not."""
+    from repro_torch.kernels import common
+    for src in common.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert sorted(p.name for p in tmp_path.glob("*.cuh"))
+    monkeypatch.setattr(common, "CSRC", tmp_path)
+    before = {n: common._lib_path(n) for n in ("asym", "megascan")}
+    header = tmp_path / "asym_tile.cuh"
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    after = {n: common._lib_path(n) for n in ("asym", "megascan")}
+    assert all(before[n] != after[n] for n in before)
+    megascan_before = after["megascan"]
+    cu = tmp_path / "asym.cu"
+    cu.write_bytes(cu.read_bytes() + b"// edited\n")
+    assert common._lib_path("asym") != after["asym"]
+    assert common._lib_path("megascan") == megascan_before
