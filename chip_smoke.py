@@ -12,11 +12,13 @@ Phases, each of which raises (exit code not 0) on any failure:
   3. kernels  — each kernel against its plain PyTorch version at the
                 reference's test shapes (ragged M, B past a query tile,
                 empty, unsorted and padding segments), rtol=1e-4, and
-                bitwise equal from run to run.
+                bitwise equal from run to run; the Hamming distance
+                (row 4, which no engine path runs) exactly and the
+                Hamming similarity bit for bit (one value table).
   4. small    — a small corpus served through the CUDA index and
-                through the same index on the CPU (plain versions):
-                probability rows agree (rtol=1e-4), census counts are
-                the exact counts.
+                through the same index on the CPU (plain versions), in
+                asym and in sym mode: probability rows agree
+                (rtol=1e-4), census counts are the exact counts.
   5. serving  — the main path at full width (the EmApprox config: dim
                 64, bits 256, beta 8, vocab 4096, 16 topics, 4096-token
                 shards) over n_docs documents: a synthetic corpus from
@@ -25,12 +27,13 @@ Phases, each of which raises (exit code not 0) on any failure:
                 vectors = count-weighted mean of their documents'
                 vectors), ``build_index(granularity="doc")`` with the
                 kernels on, and ``QueryBatch`` over a
-                ``ShardTaskExecutor`` serving 2 batches of 48 mixed
-                count / Boolean / ranked queries at rate 0.05 (cut from
-                3: the host shard scan takes 50–220 s a batch, and the
-                run must stay well inside its 1200 s limit).  The
-                launch counters are zeroed just before and read just
-                after; both kernels must have launched.  Every batch's
+                ``ShardTaskExecutor`` serving a batch of 48 mixed
+                count / Boolean / ranked queries at rate 0.05 on cold
+                postings, then one of 12 on warm postings (cut from 3
+                batches of 48: the host shard scan takes 15–380 s a full
+                batch, and the run must stay well inside its 1200 s
+                limit).  The launch counters are zeroed just before and
+                read just after; both kernels must have launched.  Every batch's
                 probability rows are held against the plain path on the
                 same vectors (rtol=1e-4).
   6. timing   — each kernel at the shapes the main path gave it,
@@ -40,7 +43,10 @@ Phases, each of which raises (exit code not 0) on any failure:
                 are those of the least-work, table-lookup algorithm,
                 see ``least_ops``, plus one compare per candidate for
                 the top-k kernels; the figure with the kernels' own
-                sort networks is printed beside it).
+                sort networks is printed beside it).  The Hamming
+                kernels' bound takes their popcounts over the card's
+                popcount rate instead (``popc_rate``: SMs x 16 per
+                clock, compute capability 9.0, x the max SM clock).
   7. megascan — on the serving index: 12 query vectors from 3-word
                 triples with ragged plans (every 4th query one shard,
                 the next half the fleet, the rest the whole fleet)
@@ -55,10 +61,31 @@ Phases, each of which raises (exit code not 0) on any failure:
   8. top-k    — ``topk_doc_similarities_batch`` of the serving phase's
                 48 queries, k=10 over every doc, fused (the kernel)
                 against unfused; the kernel timed.
+  9. sym serving — the paper's two-sided Hamming mode on the same
+                corpus and signatures (``lsh_mode="sym"``): one batch
+                of the serving phase's first 48 queries through
+                ``QueryBatch.execute`` (the postings built before are
+                reused), rows 5 and 6 launched in it, rows held against
+                the plain path on the same query signatures; then, with
+                row 5's counter zeroed again, a shard-granular sym
+                planning of the same queries (exactly one row 5 launch)
+                against plain.
+ 10. sym megascan — a Hamming sum ``MegascanSpec`` over the full fleet
+                with phase 7's plans: one group launch, against plain,
+                bitwise equal to the per-shard route on phase 7's
+                sample and to the streamed schedule; both routes timed
+                over 5 alternating runs.
+ 11. sym top-k — ``topk_doc_similarities_batch`` on the sym index, k=10,
+                48 queries, every doc: ids and values equal the plain
+                path's exactly, ties included; rows 4 and 5 timed at
+                this shape.
 
-Each of the main paths (serving, megascan, top-k) is driven with the
-launch counters set to 0 just before it and read just after; each of
-its kernels must have launched.  The last three lines of standard
+Each of the main paths (serving, megascan, top-k, and their sym
+counterparts) is driven with the launch counters set to 0 just before
+it and read just after; each of its kernels must have launched.  Row 5
+runs on three paths (the sym batch, the shard-granular planning, the
+sym top-k): its record's ``launches`` is the sym batch's count and
+``launches_by_path`` has each path's own.  The last three lines of standard
 output are the card line, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -80,9 +107,12 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 RTOL = 1e-4
-# batches the serving phase serves; cut from 3, the host shard scan
-# takes 50-220 s a batch and the run must stay well inside 1200 s
+# batches the serving phase serves: the first of --batch queries on cold
+# postings, each later one of WARM_BATCH queries on warm postings.  Cut
+# from 3 full batches: the host shard scan takes 15-380 s a full batch
+# and the run must stay well inside 1200 s
 SERVE_BATCHES = 2
+WARM_BATCH = 12
 ROUTE_RUNS = 20  # host-clock runs of each megascan route on the sample
 TEST_SHAPES = [  # (B, M, S, dim, bits, beta), the reference's kernel tests
     (1, 7, 3, 24, 128, 1.0), (5, 613, 37, 48, 128, 8.0),
@@ -93,6 +123,16 @@ TOPK_SHAPES = [  # (B, M, k, dim, bits, beta, duplicated rows)
     (2, 700, 300, 24, 128, 1.0, False), (2, 50, 7, 24, 64, 2.0, False),
     (4, 600, 10, 32, 64, 4.0, True),
 ]
+HAMMING_SHAPES = [  # (N, M, words), the reference's distance tests
+    (1, 7, 4), (3, 512, 4), (8, 513, 8), (5, 64, 2), (16, 1000, 1),
+]
+HAMMING_SEG_SHAPES = [  # (N, M, S, bits, beta), the reference's fused tests
+    (4, 300, 37, 128, 8.0), (1, 64, 3, 64, 1.0), (8, 1000, 121, 256, 4.0),
+]
+# __popc results per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput table)
+POPC_PER_CLOCK_PER_SM = 16
+SYM_ROUTE_RUNS = 5  # host-clock runs of each Hamming megascan route
 RAGGED = (13, 8, 1, 0, 27, 64, 5)   # the reference's megascan shard census
 MEGA_SHAPES = [  # (shard doc counts, tm, k, duplicated rows); dim 16, bits 64
     (RAGGED, 8, 5, False), (RAGGED, 16, 5, False), ((300, 40, 9), 256, 7, False),
@@ -163,6 +203,30 @@ def sort_ces(n: int) -> float:
     """Compare-exchanges of a bitonic sort of n (a power of two)."""
     lg = int(n).bit_length() - 1
     return n / 2 * lg * (lg + 1) / 2
+
+
+def popc_rate() -> "tuple[float, str]":
+    """(popcounts per second, how it was reckoned): the SMs times
+    POPC_PER_CLOCK_PER_SM times the card's max SM clock (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * POPC_PER_CLOCK_PER_SM * mhz * 1e6
+    return rate, (f"{sms} SMs x {POPC_PER_CLOCK_PER_SM} popc/clock/SM x "
+                  f"{mhz:.0f} MHz max SM clock = {rate:.4g} popc/s")
+
+
+def popc_bound(popcs: float, nbytes: float, rate: float
+               ) -> "tuple[float, str]":
+    """(bound_ms, bound_by) of a Hamming kernel: the larger of its
+    popcounts over the card's popcount rate and ``nbytes`` over the HBM
+    rate."""
+    t_ops, t_bytes = popcs / rate, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
 
 
 def bound(ops: float, nbytes: float) -> "tuple[float, str]":
@@ -327,6 +391,96 @@ def kernel_phase_ranked(dev: torch.device) -> None:
             + (f" ({ties} exact ties, lowest position first)" if dup else ""))
 
 
+def kernel_phase_hamming(dev: torch.device) -> int:
+    """The Hamming kernels (rows 4, 5, 6 and 8) against their plain
+    versions at the reference's test shapes: the distance exactly, the
+    similarity bit for bit (both read one value table), the sums within
+    rtol=1e-4; every kernel bitwise run to run; for the megascan, group
+    == single shard and streamed == pipelined bit for bit.  Returns the
+    distance kernel's launches (its only path)."""
+    from repro_torch.core import lsh
+    from repro_torch.kernels.hamming import kernel as hk
+    from repro_torch.kernels.hamming import ops, ref
+    from repro_torch.kernels.megascan import kernel as mk
+    from repro_torch.kernels.megascan import ops as mops
+    from repro_torch.kernels.megascan import ref as mref
+    from repro_torch.testing import ragged_segments
+
+    def words(rng, n, w):
+        return lsh.to_packed_tensor(
+            rng.integers(0, 2**32, (n, w), dtype=np.uint32), dev)
+
+    hk.hamming_distance_kernel.launches = 0
+    for n, m, w in HAMMING_SHAPES:
+        rng = np.random.default_rng(n * 100 + m)
+        q, db = words(rng, n, w), words(rng, m, w)
+        dist = ops.hamming_distance(q, db)
+        same(dist, ops.hamming_distance(q, db), f"distance {n}x{m}")
+        if not torch.equal(dist, ref.hamming_distance_ref(q, db)):
+            raise AssertionError(f"distance {n}x{m}: not exact")
+        for bits, beta in ((32 * w, 1.0), (32 * w, 8.0)):
+            sim = ops.hamming_similarity(q, db, bits, temperature=beta)
+            same(sim, ops.hamming_similarity(q, db, bits, temperature=beta),
+                 f"similarity {n}x{m}")
+            if not torch.equal(sim, ref.hamming_similarity_ref(q, db, bits,
+                                                               beta)):
+                raise AssertionError(f"similarity {n}x{m}: not bitwise plain")
+        log(f"   hamming ok at N={n} M={m} W={w}")
+    for n, m, s, bits, beta in HAMMING_SEG_SHAPES:
+        rng = np.random.default_rng(n * 10 + m)
+        q, db = words(rng, n, bits // 32), words(rng, m, bits // 32)
+        for name, seg in (
+                ("sorted", np.sort(rng.integers(0, s, m))),
+                ("unsorted+padding", rng.integers(-1, s + 3, m)),
+                ("one segment", np.full(m, s // 2))):
+            seg_t = torch.from_numpy(seg.astype(np.int32)).to(dev)
+            got = ops.hamming_segment_similarity(q, db, bits, seg_t, s,
+                                                 temperature=beta)
+            same(got, ops.hamming_segment_similarity(
+                q, db, bits, seg_t, s, temperature=beta),
+                f"hamming segment sum {n}x{m} {name}")
+            close(got, ref.hamming_segment_similarity_ref(
+                q, db, bits, seg_t, s, beta),
+                f"hamming segment sum {n}x{m}x{s} {name}")
+            occupied = np.zeros(s, bool)
+            occupied[seg[(seg >= 0) & (seg < s)]] = True
+            if bool((got[:, torch.from_numpy(~occupied).to(dev)] != 0).any()):
+                raise AssertionError("an empty segment is not exactly zero")
+        log(f"   hamming segment sum ok at N={n} M={m} S={s} bits={bits}")
+    distance_launches = hk.hamming_distance_kernel.launches
+
+    for counts, tm, _, _ in MEGA_SHAPES[:3]:
+        segs, qv, planes = ragged_segments(counts, 16, 64, tm + len(counts))
+        qsig = lsh.sign_tensor(qv, torch.as_tensor(planes, device=dev))
+        pay = mops.build_payload(segs, tm=tm, device=dev)
+        what = f"hamming megascan {counts} tm={tm}"
+        got = mk.hamming_megascan_segsum_kernel(
+            qsig, pay.sig, pay.row_start, pay.row_count, 64, temperature=4.0)
+        same(got, mk.hamming_megascan_segsum_kernel(
+            qsig, pay.sig, pay.row_start, pay.row_count, 64,
+            temperature=4.0), what)
+        close(got, mref.hamming_megascan_segsum_ref(
+            qsig, pay.sig, 64, pay.row_start, pay.row_count, 4.0), what)
+        if bool((got[:, torch.from_numpy(pay.counts == 0).to(dev)] != 0).any()):
+            raise AssertionError(f"{what}: an empty slot is not exactly zero")
+        sums = mops.megascan_segment_sums(pay, qsig, None, 64, mode="hamming",
+                                          temperature=4.0)
+        streamed = mops.megascan_segment_sums(pay, qsig, None, 64,
+                                              mode="hamming", temperature=4.0,
+                                              double_buffer=False)
+        if not np.array_equal(sums, streamed):
+            raise AssertionError(f"{what}: streamed != pipelined")
+        for s, seg in enumerate(segs):
+            one = mops.build_payload([seg], tm=tm, device=dev)
+            single = mops.megascan_segment_sums(one, qsig, None, 64,
+                                                mode="hamming",
+                                                temperature=4.0)
+            if not np.array_equal(sums[:, s], single[:, 0]):
+                raise AssertionError(f"{what}: group != single shard {s}")
+        log(f"   {what} ok")
+    return distance_launches
+
+
 # ----------------------------------------------------------------------
 # the stand-in model and the corpus
 # ----------------------------------------------------------------------
@@ -416,34 +570,64 @@ def build_served_index(n_docs: int, seed: int, dev: torch.device,
 # ----------------------------------------------------------------------
 # the plain path on the same vectors
 # ----------------------------------------------------------------------
-def plain_rows(index, queries):
-    """Probability rows of ``queries`` computed with the plain PyTorch
-    versions on the card (the unfused [B, n_docs] matrix, then a
-    scatter-add), following the engine's planning algebra."""
-    from repro_torch.core.sampling import similarity_probabilities
+def plain_segment_sums(index, vecs: np.ndarray) -> np.ndarray:
+    """[B, n_shards] doc-granular planning sums by the plain versions of
+    the index's LSH mode on the card: the unfused [B, n_docs] matrix,
+    then a scatter-add.  Sym queries take the index's own host-side
+    signatures."""
     from repro_torch.kernels.asym import ref
+    from repro_torch.kernels.hamming import ref as href
 
     dev = index._fused_device_arrays()
     n_shards = index.shard_vecs.shape[0]
+    if index.lsh_mode == "asym":
+        out = ref.asym_exp_segment_sum_ref(
+            torch.as_tensor(vecs, device=index.device), dev["sig"],
+            dev["planes"], index.bits, dev["seg"], n_shards,
+            index.temperature)
+    else:
+        qsig = index.query_sig_tensor(vecs)
+        out = href.hamming_segment_similarity_ref(
+            qsig, dev["sig"], index.bits, dev["seg"], n_shards,
+            index.temperature)
+    return out.cpu().numpy().astype(np.float64)
+
+
+def plain_similarities(index, vecs: np.ndarray, sig: torch.Tensor
+                       ) -> torch.Tensor:
+    """[B, M] exp-similarities of ``vecs`` against the packed rows
+    ``sig`` by the plain version of the index's LSH mode on the card."""
+    from repro_torch.kernels.asym import ref
+    from repro_torch.kernels.hamming import ref as href
+
+    if index.lsh_mode == "asym":
+        return ref.asym_exp_similarity_ref(
+            torch.as_tensor(vecs, device=index.device), sig,
+            index._device_planes(), index.bits, index.temperature)
+    qsig = index.query_sig_tensor(vecs)
+    return href.hamming_similarity_ref(qsig, sig, index.bits,
+                                       index.temperature)
+
+
+def plain_rows(index, queries):
+    """Probability rows of ``queries`` computed with the plain PyTorch
+    versions on the card, following the engine's planning algebra."""
+    from repro_torch.core.sampling import similarity_probabilities
+
     rows = [None] * len(queries)
     vec_pos = [i for i, q in enumerate(queries) if q.kind != "bool"]
     if vec_pos:
-        vecs = torch.as_tensor(index.query_vectors(
-            [queries[i].word_ids() for i in vec_pos]), device=index.device)
-        sims = ref.asym_exp_segment_sum_ref(
-            vecs, dev["sig"], dev["planes"], index.bits, dev["seg"],
-            n_shards, index.temperature).cpu().numpy().astype(np.float64)
+        sims = plain_segment_sums(index, index.query_vectors(
+            [queries[i].word_ids() for i in vec_pos]))
         for row, i in zip(sims, vec_pos):
             rows[i] = similarity_probabilities(row)
     bool_pos = [i for i, q in enumerate(queries) if q.kind == "bool"]
     if bool_pos:
         words = sorted({w for i in bool_pos for w in queries[i].expr.words()})
-        wv = torch.as_tensor(index.word_vecs[np.asarray(words)],
-                             device=index.device)
         sig = index._device_sig(index.shard_sig, "shard")
-        w_rows = ref.asym_exp_similarity_ref(
-            wv, sig, dev["planes"], index.bits,
-            index.temperature).cpu().numpy().astype(np.float64)
+        w_rows = plain_similarities(
+            index, index.word_vecs[np.asarray(words)],
+            sig).cpu().numpy().astype(np.float64)
         by_word = dict(zip(words, w_rows))
 
         def algebra(e):
@@ -455,6 +639,20 @@ def plain_rows(index, queries):
         for i in bool_pos:
             rows[i] = similarity_probabilities(algebra(queries[i].expr))
     return rows
+
+
+def record_planning(engine, seen: list) -> None:
+    """Wrap ``engine._probability_rows`` so that every call appends
+    (queries, rows, seconds) to ``seen``."""
+    inner = engine._probability_rows
+
+    def recording_rows(qs, c, i):
+        t = time.perf_counter()
+        rows = inner(qs, c, i)
+        seen.append((list(qs), rows, time.perf_counter() - t))
+        return rows
+
+    engine._probability_rows = recording_rows
 
 
 def check_rows(got, want, what: str) -> None:
@@ -473,26 +671,31 @@ def small_phase(dev: torch.device, seed: int) -> None:
     from repro_torch.core.queries import QueryBatch
 
     timings: dict = {}
-    _, corpus, index = build_served_index(3000, seed, dev, timings)
-    cpu_index = dataclasses.replace(index, device="cpu").attach_corpus(corpus)
+    _, corpus, asym_index = build_served_index(3000, seed, dev, timings)
     counts = np.bincount(np.concatenate([s.tokens for s in corpus.shards]),
                          minlength=corpus.vocab_size)
     queries = make_queries(counts, 24, np.random.default_rng(seed), 1.0)
-    cuda_engine = QueryBatch(corpus, index)
-    cpu_engine = QueryBatch(corpus, cpu_index)
-    check_rows(cuda_engine._probability_rows(queries, corpus, index),
-               cpu_engine._probability_rows(queries, corpus, cpu_index),
-               "small input, CUDA vs CPU index")
-    census = cuda_engine.execute(queries, 1.0)
-    plain = cpu_engine.execute(queries, 1.0)
-    for q, a, b in zip(queries, census, plain):
-        if q.kind == "count":
-            truth = float(corpus.count_phrase(q.phrase))
-            if a.estimate.value != truth or b.estimate.value != truth:
-                raise AssertionError("census count is not the exact count")
-        else:
-            np.testing.assert_array_equal(a.doc_ids, b.doc_ids)
-    log(f"   small input ok: {corpus.n_docs} docs, {corpus.n_shards} shards")
+    for mode in ("asym", "sym"):
+        index = dataclasses.replace(asym_index,
+                                    lsh_mode=mode).attach_corpus(corpus)
+        cpu_index = dataclasses.replace(index,
+                                        device="cpu").attach_corpus(corpus)
+        cuda_engine = QueryBatch(corpus, index)
+        cpu_engine = QueryBatch(corpus, cpu_index)
+        check_rows(cuda_engine._probability_rows(queries, corpus, index),
+                   cpu_engine._probability_rows(queries, corpus, cpu_index),
+                   f"small input ({mode}), CUDA vs CPU index")
+        census = cuda_engine.execute(queries, 1.0)
+        plain = cpu_engine.execute(queries, 1.0)
+        for q, a, b in zip(queries, census, plain):
+            if q.kind == "count":
+                truth = float(corpus.count_phrase(q.phrase))
+                if a.estimate.value != truth or b.estimate.value != truth:
+                    raise AssertionError("census count is not the exact count")
+            else:
+                np.testing.assert_array_equal(a.doc_ids, b.doc_ids)
+        log(f"   small input ok ({mode}): {corpus.n_docs} docs, "
+            f"{corpus.n_shards} shards")
 
 
 # ----------------------------------------------------------------------
@@ -514,27 +717,21 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
     counts = np.bincount(np.concatenate([s.tokens for s in corpus.shards]),
                          minlength=ccfg.vocab_size)
     # serve_queries.py's count window was set for its 3200-doc corpus
-    queries = make_queries(counts, args.batches * args.batch,
+    sizes = [args.batch] + [args.warm_batch] * (args.batches - 1)
+    queries = make_queries(counts, sum(sizes),
                            np.random.default_rng(args.seed),
                            corpus.n_docs / 3200)
+    starts = np.cumsum([0] + sizes)
 
     seen = []
     with ShardTaskExecutor(workers=4, adaptive_workers=True) as ex:
         engine = QueryBatch(corpus, index, executor=ex)
-        inner = engine._probability_rows
-
-        def recording_rows(qs, c, i):
-            t = time.perf_counter()
-            rows = inner(qs, c, i)
-            seen.append((list(qs), rows, time.perf_counter() - t))
-            return rows
-
-        engine._probability_rows = recording_rows
+        record_planning(engine, seen)
         k.asym_similarity_kernel.launches = 0
         k.asym_segment_sum_kernel.launches = 0
         walls, results = [], []
         for bi in range(args.batches):
-            batch = queries[bi * args.batch:(bi + 1) * args.batch]
+            batch = queries[starts[bi]:starts[bi + 1]]
             t = time.perf_counter()
             res = engine.execute(batch, args.rate,
                                  rng=np.random.default_rng(args.seed + bi))
@@ -649,7 +846,8 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
 def log_kernel(kr: dict, shape: dict) -> None:
     log(f"   {kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} "
         f"ms, bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}, max abs "
-        f"err {kr['max_abs_err']:.3g}, {kr['launches']} launches) at {shape}")
+        f"err {kr['max_abs_err']:.3g}, "
+        f"{kr.get('launches_by_path', kr['launches'])} launches) at {shape}")
 
 
 def finite_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -733,6 +931,7 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
     triples = [rng.choice(cand, 3, replace=False).tolist() for _ in range(12)]
     vecs = index.query_vectors(triples)
     plans = ragged_plans(12, n_shards, rng)
+    ctx["mega_vecs"], ctx["mega_plans"] = vecs, plans
     sum_spec = MegascanSpec(index, vecs)
     ranked_spec = MegascanSpec(index, vecs, ranked_k=10)
     with ShardTaskExecutor(workers=4) as ex:
@@ -805,6 +1004,7 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
         sample = set(rng.choice(n_shards, min(1024, n_shards),
                                 replace=False).tolist())
         sub = [[s for s in plan if s in sample] for plan in plans]
+        ctx["mega_sub"] = sub
         walls = {}
         for label, spec in (("sum", sum_spec), ("ranked", ranked_spec)):
             fns = spec.scan_fns()
@@ -905,6 +1105,290 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
 
 
 # ----------------------------------------------------------------------
+# phases 9-11: sym mode (two-sided Hamming) on the same corpus and index
+# ----------------------------------------------------------------------
+def sym_serve_phase(dev: torch.device, args, ctx: dict,
+                    rate: float) -> list:
+    """One batch of the serving phase's 48 queries through
+    ``QueryBatch.execute`` on the sym index, then a shard-granular sym
+    planning of the same queries; rows 5 and 6 must launch, and every
+    probability row equals the plain path's on the same query
+    signatures (rtol=1e-4).  Times row 6 at the shape the batch gave
+    it."""
+    from repro_torch.core.queries import QueryBatch
+    from repro_torch.kernels.hamming import kernel as hk
+    from repro_torch.kernels.hamming import ref as href
+    from repro_torch.runtime.executor import ShardTaskExecutor
+
+    corpus, batch = ctx["corpus"], ctx["batch"]
+    t = time.perf_counter()
+    index = dataclasses.replace(ctx["index"], lsh_mode="sym")
+    index._fused_device_arrays()
+    torch.cuda.synchronize()
+    log(f"   sym index: shard sort and upload {time.perf_counter() - t:.2f} s")
+    seen = []
+    with ShardTaskExecutor(workers=4, adaptive_workers=True) as ex:
+        engine = QueryBatch(corpus, index, executor=ex)
+        record_planning(engine, seen)
+        hk.hamming_similarity_kernel.launches = 0
+        hk.hamming_segment_similarity_kernel.launches = 0
+        t = time.perf_counter()
+        res = engine.execute(batch, rate,
+                             rng=np.random.default_rng(args.seed + 101))
+        torch.cuda.synchronize()
+        wall, scan_s = time.perf_counter() - t, ex.last_job["wall_s"]
+        launches = {
+            "hamming_similarity": hk.hamming_similarity_kernel.launches,
+            "hamming_segment_similarity":
+                hk.hamming_segment_similarity_kernel.launches}
+    log(f"   launches on the sym serving path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the sym path")
+    shard_index = dataclasses.replace(index, granularity="shard")
+    words = [sorted(q.expr.words()) if q.kind == "bool" else q.word_ids()
+             for q in batch]
+    hk.hamming_similarity_kernel.launches = 0
+    t = time.perf_counter()
+    shard_rows = shard_index.shard_similarities_batch(words)
+    shard_s = time.perf_counter() - t
+    shard_launches = hk.hamming_similarity_kernel.launches
+    log(f"   hamming_similarity launches on the shard-granular planning: "
+        f"{shard_launches}")
+    if shard_launches != 1:
+        raise AssertionError(f"shard-granular sym planning launched "
+                             f"hamming_similarity {shard_launches} times, "
+                             f"not once")
+    qs, rows, plan_s = seen[0]
+    check_rows(rows, plain_rows(index, qs), "sym batch")
+    for q, r in zip(batch, res):
+        if q.kind == "count" and not (math.isfinite(r.estimate.value)
+                                      and r.estimate.value >= 0):
+            raise AssertionError(f"sym count estimate {r.estimate.value}")
+        if q.kind == "ranked" and not np.all(np.isfinite(r.scores)):
+            raise AssertionError("malformed sym ranked result")
+    log(f"   sym batch: {len(batch)} queries at rate {rate}, wall "
+        f"{wall:.3f} s (planning {plan_s:.3f} s, shared scan {scan_s:.3f} "
+        f"s), shards read {sum(r.shards_read for r in res)}; rows match "
+        f"the plain path")
+    shard_sig = index._device_sig(index.shard_sig, "shard")
+    want = plain_similarities(index, index.query_vectors(words), shard_sig)
+    np.testing.assert_allclose(shard_rows, want.cpu().numpy(), rtol=RTOL,
+                               err_msg="sym shard-granular planning")
+    log(f"   sym shard-granular planning of {len(words)} queries: "
+        f"{shard_s:.3f} s, matches the plain path")
+
+    # ---- row 6 at the shape the batch gave it ----
+    dev_ops = index._fused_device_arrays()
+    sig, seg, offs = dev_ops["sig"], dev_ops["seg"], dev_ops["offsets"]
+    vec_q = [q for q in batch if q.kind != "bool"]
+    qsig = index.query_sig_tensor(
+        index.query_vectors([q.word_ids() for q in vec_q]))
+    bits, beta = index.bits, index.temperature
+    b, m, w = qsig.shape[0], sig.shape[0], sig.shape[1]
+    n_shards = offs.shape[0] - 1
+    got = hk.hamming_segment_similarity_kernel(qsig, sig, offs, bits,
+                                               temperature=beta)
+    same(got, hk.hamming_segment_similarity_kernel(
+        qsig, sig, offs, bits, temperature=beta), "sym segment sum")
+    err = close(got, href.hamming_segment_similarity_ref(
+        qsig, sig, bits, seg, n_shards, beta), "sym segment sum")
+    nbytes = 4.0 * (b * w + m * w + (n_shards + 1) + (32 * w + 1)
+                    + b * n_shards)
+    bound_ms, bound_by = popc_bound(b * m * w, nbytes, ctx["popc_rate"])
+    kr = dict(
+        name="hamming_segment_similarity", route="cuda",
+        source="src/repro_torch/csrc/hamming.cu",
+        replaces="src/repro/kernels/hamming/kernel.py:160",
+        launches=launches["hamming_segment_similarity"], max_abs_err=err,
+        ms=time_ms(lambda: hk.hamming_segment_similarity_kernel(
+            qsig, sig, offs, bits, temperature=beta)),
+        plain_ms=time_ms(lambda: href.hamming_segment_similarity_csr_ref(
+            qsig, sig, bits, offs, beta)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log_kernel(kr, dict(B=b, M=m, S=n_shards, W=w, bits=bits))
+    ctx["sym_index"] = index
+    ctx["sym_launches"] = launches
+    ctx["sym_shard_launches"] = shard_launches
+    return [kr]
+
+
+def sym_megascan_phase(dev: torch.device, ctx: dict) -> list:
+    """A Hamming sum ``MegascanSpec`` over the full fleet with the
+    megascan phase's ragged plans: one group launch, the plain version,
+    group == per-shard on the 1024-shard sample and streamed ==
+    pipelined bit for bit, both routes timed."""
+    from repro_torch.kernels.megascan import MegascanSpec
+    from repro_torch.kernels.megascan import kernel as mk
+    from repro_torch.kernels.megascan import ops as mops
+    from repro_torch.kernels.megascan import ref as mref
+    from repro_torch.runtime.executor import ShardTaskExecutor
+
+    corpus, index = ctx["corpus"], ctx["sym_index"]
+    n_shards = corpus.n_shards
+    plans, sub = ctx["mega_plans"], ctx["mega_sub"]
+    spec = MegascanSpec(index, ctx["mega_vecs"])
+    if spec.mode != "hamming":
+        raise AssertionError(f"sym spec runs in {spec.mode} mode")
+    with ShardTaskExecutor(workers=4) as ex:
+        t = time.perf_counter()
+        pay = index.megascan_payload(tuple(range(n_shards)))
+        torch.cuda.synchronize()
+        log(f"   full-fleet payload built and uploaded in "
+            f"{time.perf_counter() - t:.2f} s")
+        mk.hamming_megascan_segsum_kernel.launches = 0
+        t = time.perf_counter()
+        group = ex.map_shard_batch(corpus, plans, spec.scan_fns(),
+                                   megakernel=True)
+        wall = time.perf_counter() - t
+        launches = mk.hamming_megascan_segsum_kernel.launches
+        if spec.stats["group_launches"] != 1 or launches <= 0:
+            raise AssertionError(f"hamming megascan: {spec.stats}, "
+                                 f"{launches} kernel launches")
+        rec = ex.last_job["megascan"]
+        log(f"   hamming megascan: 1 launch over {rec['shards']} shards, "
+            f"{rec['real_rows']} real rows, route wall {wall:.3f} s (scan "
+            f"{rec['wall_s']:.4f} s); {launches} kernel launches")
+        qsig, bits, beta = spec.queries, index.bits, index.temperature
+        plain = mref.hamming_megascan_segsum_ref(
+            qsig, pay.sig, bits, pay.row_start, pay.row_count,
+            beta).cpu().numpy()
+        got = dense_of(group, n_shards, False)
+        seen = ~np.isnan(got)
+        np.testing.assert_allclose(got[seen], plain[seen], rtol=RTOL,
+                                   err_msg="hamming megascan vs plain")
+        fns = spec.scan_fns()
+        per = ex.map_shard_batch(corpus, sub, fns, megakernel=False)
+        n = results_equal(group, per, "hamming group vs per-shard")
+        log(f"   hamming: group == per-shard bitwise on {n} (query, shard) "
+            f"pairs of the 1024-shard sample")
+        walls = {}
+        for megakernel in (True, False) * SYM_ROUTE_RUNS:   # alternating
+            t = time.perf_counter()
+            ex.map_shard_batch(corpus, sub, fns, megakernel=megakernel)
+            walls.setdefault(megakernel, []).append(time.perf_counter() - t)
+        for label, key in (("group", True), ("per-shard", False)):
+            w_ = walls[key]
+            log(f"   hamming 1024-shard sample, {label} route, host wall over "
+                f"{len(w_)} runs: median {np.median(w_)} s, min {min(w_)} s, "
+                f"max {max(w_)} s")
+    pipelined = mops.megascan_segment_sums(pay, qsig, None, bits,
+                                           mode="hamming", temperature=beta)
+    streamed = mops.megascan_segment_sums(pay, qsig, None, bits,
+                                          mode="hamming", temperature=beta,
+                                          double_buffer=False)
+    if not np.array_equal(pipelined, streamed):
+        raise AssertionError("hamming full-fleet streamed != pipelined")
+    log("   hamming full fleet: streamed == pipelined, bitwise")
+
+    b, w = qsig.shape[0], pay.sig.shape[1]
+    real, n_slots = pay.real_rows, pay.n_slots
+    got = mk.hamming_megascan_segsum_kernel(qsig, pay.sig, pay.row_start,
+                                            pay.row_count, bits,
+                                            temperature=beta)
+    same(got, mk.hamming_megascan_segsum_kernel(
+        qsig, pay.sig, pay.row_start, pay.row_count, bits,
+        temperature=beta), "hamming megascan, full fleet")
+    err = close(got, torch.from_numpy(plain).to(dev),
+                "hamming megascan, full fleet")
+    nbytes = 4.0 * (b * w + real * w + 2 * n_slots + (32 * w + 1) + b * n_slots)
+    bound_ms, bound_by = popc_bound(b * real * w, nbytes, ctx["popc_rate"])
+    kr = dict(
+        name="hamming_megascan_segsum", route="cuda",
+        source="src/repro_torch/csrc/megascan.cu",
+        replaces="src/repro/kernels/megascan/kernel.py:222",
+        launches=launches, max_abs_err=err,
+        ms=time_ms(lambda: mk.hamming_megascan_segsum_kernel(
+            qsig, pay.sig, pay.row_start, pay.row_count, bits,
+            temperature=beta)),
+        plain_ms=time_ms(lambda: mref.hamming_megascan_segsum_ref(
+            qsig, pay.sig, bits, pay.row_start, pay.row_count, beta)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log_kernel(kr, dict(B=b, real_rows=real, payload_rows=pay.n_rows,
+                        S=n_slots, W=w, bits=bits))
+    return [kr]
+
+
+def sym_topk_phase(dev: torch.device, ctx: dict,
+                   distance_launches: int) -> list:
+    """``topk_doc_similarities_batch`` on the sym index (row 5 over
+    every doc, then a stable sort): ids equal the plain path's exactly,
+    ties included.  Times rows 4 and 5 at this shape."""
+    from repro_torch.kernels.hamming import kernel as hk
+    from repro_torch.kernels.hamming import ref as href
+
+    index, batch = ctx["sym_index"], ctx["batch"]
+    words = [sorted(q.expr.words()) if q.kind == "bool" else q.word_ids()
+             for q in batch]
+    hk.hamming_similarity_kernel.launches = 0
+    t = time.perf_counter()
+    ids, vals = index.topk_doc_similarities_batch(words, k=10)
+    wall = time.perf_counter() - t
+    launches = hk.hamming_similarity_kernel.launches
+    log(f"   sym top-10 over {index.n_docs} docs for {len(words)} queries: "
+        f"{wall:.3f} s host wall, {launches} similarity launches")
+    if launches <= 0:
+        raise AssertionError("hamming_similarity never launched on top-k")
+    db = index._device_sig(index.doc_sig, "doc")
+    qsig = index.query_sig_tensor(index.query_vectors(words))
+    bits, beta = index.bits, index.temperature
+    want = href.hamming_similarity_ref(qsig, db, bits, beta)
+    wv, wi = torch.sort(want, dim=1, descending=True, stable=True)
+    if not (np.array_equal(ids, wi[:, :10].cpu().numpy())
+            and np.array_equal(vals, wv[:, :10].cpu().numpy())):
+        raise AssertionError("sym top-k differs from the plain path")
+    ties = int((np.diff(vals, axis=1) == 0).sum())
+    log(f"   sym top-k ids and values equal the plain path exactly "
+        f"({ties} exact ties in the top 10, lowest index first)")
+
+    b, m, w = qsig.shape[0], db.shape[0], db.shape[1]
+    sim = hk.hamming_similarity_kernel(qsig, db, bits, temperature=beta)
+    same(sim, hk.hamming_similarity_kernel(qsig, db, bits, temperature=beta),
+         "sym similarity at the top-k shape")
+    if not torch.equal(sim, want):
+        raise AssertionError("sym similarity is not bitwise its plain version")
+    sim_err = float((sim.double() - want.double()).abs().max())
+    del sim
+    rate = ctx["popc_rate"]
+    nbytes = 4.0 * (b * w + m * w + (32 * w + 1) + b * m)
+    bound_ms, bound_by = popc_bound(b * m * w, nbytes, rate)
+    kernels = [dict(
+        name="hamming_similarity", route="cuda",
+        source="src/repro_torch/csrc/hamming.cu",
+        replaces="src/repro/kernels/hamming/kernel.py:89",
+        launches=ctx["sym_launches"]["hamming_similarity"],
+        launches_by_path={
+            "sym_batch": ctx["sym_launches"]["hamming_similarity"],
+            "sym_shard_planning": ctx["sym_shard_launches"],
+            "sym_topk": launches},
+        max_abs_err=sim_err,
+        ms=time_ms(lambda: hk.hamming_similarity_kernel(
+            qsig, db, bits, temperature=beta)),
+        plain_ms=time_ms(lambda: href.hamming_similarity_ref(
+            qsig, db, bits, beta)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+    log_kernel(kernels[-1], dict(B=b, M=m, W=w, bits=bits))
+    dist = hk.hamming_distance_kernel(qsig, db)
+    plain_dist = href.hamming_distance_ref(qsig, db)
+    if not torch.equal(dist, plain_dist):
+        raise AssertionError("distance at the top-k shape is not exact")
+    dist_err = float((dist - plain_dist).abs().max())
+    del dist, plain_dist
+    nbytes = 4.0 * (b * w + m * w + b * m)
+    bound_ms, bound_by = popc_bound(b * m * w, nbytes, rate)
+    kernels.insert(0, dict(
+        name="hamming_distance", route="cuda",
+        source="src/repro_torch/csrc/hamming.cu",
+        replaces="src/repro/kernels/hamming/kernel.py:89",
+        launches=distance_launches, max_abs_err=dist_err,
+        ms=time_ms(lambda: hk.hamming_distance_kernel(qsig, db)),
+        plain_ms=time_ms(lambda: href.hamming_distance_ref(qsig, db)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    log_kernel(kernels[0], dict(B=b, M=m, W=w, bits=bits))
+    return kernels
+
+
+# ----------------------------------------------------------------------
 # phase 8: ranked top-k over every document
 # ----------------------------------------------------------------------
 def topk_phase(dev: torch.device, ctx: dict) -> list:
@@ -977,6 +1461,7 @@ def main(argv=None) -> int:
     p.add_argument("--n-docs", type=int, default=1 << 20)
     p.add_argument("--batches", type=int, default=SERVE_BATCHES)
     p.add_argument("--batch", type=int, default=48)
+    p.add_argument("--warm-batch", type=int, default=WARM_BATCH)
     p.add_argument("--rate", type=float, default=0.05)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -994,20 +1479,29 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     common.build_all()
     log(f"== build: {time.perf_counter() - t:.1f} s")
+    rate, rate_note = popc_rate()
+    log(f"== popcount rate for the Hamming bounds: {rate_note}")
     log("== kernels vs plain versions at the reference's test shapes")
     kernel_phase(dev)
     kernel_phase_ranked(dev)
-    log("== small input: CUDA index vs CPU index")
+    distance_launches = kernel_phase_hamming(dev)
+    log("== small input: CUDA index vs CPU index, asym and sym")
     small_phase(dev, args.seed)
-    log(f"== serving: n_docs={args.n_docs}, {args.batches} batches of "
-        f"{args.batch} at rate {args.rate}"
-        + (f" (cut from 3 to {SERVE_BATCHES} to stay inside the time limit)"
-           if args.batches == SERVE_BATCHES else ""))
+    log(f"== serving: n_docs={args.n_docs}, a batch of {args.batch} then "
+        f"{args.batches - 1} of {args.warm_batch} at rate {args.rate}")
     kernels, ctx = serve_phase(dev, args)
+    ctx["popc_rate"] = rate
     log("== megascan: sum and ranked specs through the group route")
     mega = megascan_phase(dev, args, ctx)
     log("== ranked top-k over every document")
     kernels += topk_phase(dev, ctx) + mega
+    log(f"== sym serving: 1 batch of {args.batch} at rate {args.rate} on the "
+        f"same corpus, lsh_mode='sym'")
+    sym = sym_serve_phase(dev, args, ctx, args.rate)
+    log("== sym megascan: a Hamming sum spec through the group route")
+    sym += sym_megascan_phase(dev, ctx)
+    log("== sym top-k over every document")
+    kernels += sym_topk_phase(dev, ctx, distance_launches) + sym
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

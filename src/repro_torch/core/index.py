@@ -15,28 +15,34 @@ reference's types, and what ``save``/``load`` exchange) and computes on
 ``device``: CUDA unless the caller asks for the CPU.  Asking for CUDA
 without a GPU raises.
 
-LSH scoring (asym mode) always goes through ``kernels/asym``, and the
+LSH scoring always goes through the kernels of its mode, and the
 device alone picks the route: on CUDA the hand-written kernels, on the
-CPU their plain PyTorch versions.  The JAX package's ``use_kernel``
-flag has no counterpart: ``load``/``from_arrays`` read past it and
-``save`` writes it True.  ``_exp_sim_batch`` scores a [B, dim] block
-against every target signature (Boolean word x shard rows), and
-doc-granular planning takes the fused segment sum, which reduces the
-[B, n_docs] similarities straight to [B, n_shards] without writing the
-intermediate.  Only the real-valued ablation (``use_lsh=False``)
-scores in numpy on the host.  The device-resident operands (planes, the
-shard-sorted doc signatures and slots, the CSR segment offsets) are
-uploaded once and cached; ``attach_corpus`` drops them.  Results come
-back as numpy float64, as in the reference.
+CPU their plain PyTorch versions.  asym mode (stored side quantized,
+query side real) scores through ``kernels/asym``; sym mode, the
+paper's two-sided Hamming scoring (Sec. III-B), signs the queries
+through ``lsh.sign_tensor`` (on the host, so their bits do not depend
+on the device) and scores through ``kernels/hamming``.  The JAX package's
+``use_kernel`` flag has no counterpart: ``load``/``from_arrays`` read
+past it and ``save`` writes it True.  ``_exp_sim_batch`` scores a
+[B, dim] block against every target signature (Boolean word x shard
+rows, shard-granular planning), and doc-granular planning takes the
+fused segment sum, which reduces the [B, n_docs] similarities straight
+to [B, n_shards] without writing the intermediate.  Only the
+real-valued ablation (``use_lsh=False``) scores in numpy on the host.
+The device-resident operands (planes, the shard-sorted doc signatures
+and slots, the CSR segment offsets) are uploaded once and cached;
+``attach_corpus`` drops them.  Results come back as numpy float64, as
+in the reference.
 
 Ranked retrieval over documents (``topk_doc_similarities_batch``) runs
 the fused per-tile top-k (``kernels/asym``) on the cached doc
-signatures; ``megascan_payload`` packs a shard group's doc signatures
-into the block-aligned payload of the one-launch megascan
-(``kernels/megascan``), cached per (shards, tile, content generation).
+signatures in asym mode; in sym mode it scores every doc and sorts on
+the device, the reference's unfused route.  ``megascan_payload`` packs
+a shard group's doc signatures into the block-aligned payload of the
+one-launch megascan (``kernels/megascan``), cached per (shards, tile,
+content generation).
 
-Not in this module yet: the paper-faithful two-sided Hamming mode
-(``lsh_mode="sym"`` raises) and the live-ingest refresh.
+Not in this module yet: the live-ingest refresh.
 """
 from __future__ import annotations
 
@@ -60,11 +66,6 @@ from repro_torch.runtime.generation import GenerationClock
 _PAYLOAD_LOCK = threading.Lock()
 
 
-def _sym_unsupported() -> NotImplementedError:
-    return NotImplementedError(
-        "lsh_mode='sym' (two-sided Hamming scoring) is not ported yet")
-
-
 @dataclasses.dataclass
 class ApproxIndex:
     word_vecs: np.ndarray          # [V, dim] float32 (unit rows)
@@ -79,8 +80,8 @@ class ApproxIndex:
     n_docs: int
     avg_doc_len: float
     use_lsh: bool = True           # False = score with real-valued vectors
-    # "asym": stored side quantized, query side real; "sym" (two-sided
-    # Hamming) is not ported yet
+    # "asym": stored side quantized, query side real; "sym": two-sided
+    # Hamming (the paper's mode)
     lsh_mode: str = "asym"
     # "shard": paper Eq 10 (one vector per shard);  "doc": doc-granular
     # scoring (see shard_similarities)
@@ -178,22 +179,38 @@ class ApproxIndex:
                        target_vecs: np.ndarray, role: str) -> np.ndarray:
         """exp(beta * cos) of a [B, dim] query block against a signed
         set; returns [B, M] float64.  On CUDA the block is scored in one
-        launch of the asym similarity kernel."""
+        launch of the similarity kernel of the LSH mode."""
         vecs = np.atleast_2d(np.asarray(vecs))
         if self.use_lsh:
-            if self.lsh_mode != "asym":
-                raise _sym_unsupported()
+            return self._lsh_sims(vecs, target_sig, role).cpu().numpy(
+            ).astype(np.float64)
+        q = np.asarray(vecs, np.float64)
+        q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-9)
+        return np.exp(self.temperature * (q @ target_vecs.astype(np.float64).T))
+
+    def _lsh_sims(self, vecs: np.ndarray, target_sig: np.ndarray,
+                  role: str) -> torch.Tensor:
+        """[B, M] float32 LSH exp-similarities on the device: asym
+        through ``kernels/asym``, sym through ``kernels/hamming`` on the
+        host-signed query signatures."""
+        if self.lsh_mode == "asym":
             from repro_torch.kernels.asym import ops as asym_ops
-            sims = asym_ops.asym_exp_similarity(
+            return asym_ops.asym_exp_similarity(
                 torch.as_tensor(np.asarray(vecs, np.float32),
                                 device=self.device),
                 self._device_sig(target_sig, role),
                 self._device_planes(), self.bits,
                 temperature=self.temperature)
-            return sims.cpu().numpy().astype(np.float64)
-        q = np.asarray(vecs, np.float64)
-        q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-9)
-        return np.exp(self.temperature * (q @ target_vecs.astype(np.float64).T))
+        from repro_torch.kernels.hamming import ops as hamming_ops
+        return hamming_ops.hamming_similarity(
+            self.query_sig_tensor(vecs), self._device_sig(target_sig, role),
+            self.bits, temperature=self.temperature)
+
+    def query_sig_tensor(self, vecs: np.ndarray) -> torch.Tensor:
+        """Sym mode: [B, bits//32] packed query signatures on the device,
+        signed by ``lsh.sign_tensor`` so the CUDA and the CPU index see
+        the same bits."""
+        return lsh_mod.sign_tensor(vecs, self._device_planes())
 
     def _doc_granular(self) -> bool:
         return self.granularity == "doc" and (
@@ -248,17 +265,22 @@ class ApproxIndex:
         return self._sum_docs_to_shards_batch(doc_sims)
 
     def _fused_doc_shard_sims_batch(self, vecs: np.ndarray) -> np.ndarray:
-        """[B, n_shards] via the fused segment sum over the cached
-        shard-sorted doc signatures and CSR offsets."""
-        if self.lsh_mode != "asym":
-            raise _sym_unsupported()
-        from repro_torch.kernels.asym import ops as asym_ops
+        """[B, n_shards] via the fused segment sum of the LSH mode over
+        the cached shard-sorted doc signatures and CSR offsets."""
         vecs = np.atleast_2d(np.asarray(vecs))
         dev = self._fused_device_arrays()
-        out = asym_ops.asym_exp_segment_sum_csr(
-            torch.as_tensor(np.asarray(vecs, np.float32), device=self.device),
-            dev["sig"], dev["planes"], self.bits, dev["offsets"],
-            temperature=self.temperature)
+        if self.lsh_mode == "asym":
+            from repro_torch.kernels.asym import ops as asym_ops
+            out = asym_ops.asym_exp_segment_sum_csr(
+                torch.as_tensor(np.asarray(vecs, np.float32),
+                                device=self.device),
+                dev["sig"], dev["planes"], self.bits, dev["offsets"],
+                temperature=self.temperature)
+        else:
+            from repro_torch.kernels.hamming import ops as hamming_ops
+            out = hamming_ops.hamming_segment_similarity_csr(
+                self.query_sig_tensor(vecs), dev["sig"], self.bits,
+                dev["offsets"], temperature=self.temperature)
         return out.cpu().numpy().astype(np.float64)
 
     def topk_doc_similarities_batch(
@@ -269,15 +291,20 @@ class ApproxIndex:
         lowest doc index, k = min(k, n_docs).
 
         ``fused=True`` on an asym LSH index runs the fused top-k (only
-        per-tile candidates leave the kernel); ``fused=False`` scores
-        the [B, n_docs] matrix unfused and takes a stable argsort — the
-        parity reference."""
+        per-tile candidates leave the kernel).  Otherwise — sym mode,
+        as in the reference, or ``fused=False`` — the [B, n_docs]
+        matrix is scored unfused and stably sorted, on the device for
+        an LSH index: the parity reference."""
         if self.doc_sig is None and self.doc_vecs is None:
             raise ValueError("index was built without document vectors")
         vecs = np.atleast_2d(self.query_vectors(queries))
-        if fused and self.use_lsh and self.doc_sig is not None:
-            if self.lsh_mode != "asym":
-                raise _sym_unsupported()
+        if not (self.use_lsh and self.doc_sig is not None):
+            sims = self._exp_sim_batch(vecs, self.doc_sig, self.doc_vecs,
+                                       "doc")
+            k = min(int(k), sims.shape[1])
+            idx = np.argsort(-sims, axis=1, kind="stable")[:, :k]
+            return idx.astype(np.int64), np.take_along_axis(sims, idx, axis=1)
+        if fused and self.lsh_mode == "asym":
             from repro_torch.kernels.asym import ops as asym_ops
             idx, vals = asym_ops.asym_exp_topk(
                 torch.as_tensor(np.asarray(vecs, np.float32),
@@ -285,12 +312,13 @@ class ApproxIndex:
                 self._device_sig(self.doc_sig, "doc"),
                 self._device_planes(), self.bits, k,
                 temperature=self.temperature)
-            return (idx.cpu().numpy().astype(np.int64),
-                    vals.cpu().numpy().astype(np.float64))
-        sims = self._exp_sim_batch(vecs, self.doc_sig, self.doc_vecs, "doc")
-        k = min(int(k), sims.shape[1])
-        idx = np.argsort(-sims, axis=1, kind="stable")[:, :k]
-        return idx.astype(np.int64), np.take_along_axis(sims, idx, axis=1)
+        else:
+            sims = self._lsh_sims(vecs, self.doc_sig, "doc")
+            k = min(int(k), sims.shape[1])
+            vals, idx = torch.sort(sims, dim=1, descending=True, stable=True)
+            idx, vals = idx[:, :k], vals[:, :k]
+        return (idx.cpu().numpy().astype(np.int64),
+                vals.cpu().numpy().astype(np.float64))
 
     def word_shard_similarities_batch(
             self, word_ids: Sequence[int]) -> np.ndarray:

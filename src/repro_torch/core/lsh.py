@@ -14,8 +14,13 @@ is signature bit 32*k + j.  Torch's ``uint32`` supports few ops, so the
 packed words live in ``int32`` tensors that are views of the numpy
 ``uint32`` arrays (``arr.view(np.int32)``).  Shifts and masks on the
 int32 view give the same bits as on uint32 (an arithmetic right shift
-only fills bits that the ``& 1`` mask drops); popcounts read the bits
-through a uint8 view.
+only fills bits that the masks drop), popcounts included.
+
+Query signing in sym mode goes through ``sign_tensor``, which signs on
+the host with ``sign_vectors_np`` (``ApproxIndex.query_sig_tensor``,
+which ``MegascanSpec`` calls too, and ``LSHIndex``): a
+flipped query bit moves the Hamming distance to every document by one,
+so the bits must not depend on the device the index computes on.
 
 Deviation from the JAX package: ``hyperplanes`` draws from a
 ``torch.Generator`` seeded with ``cfg.seed``.  It cannot reproduce
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -90,10 +96,16 @@ def unpack_bits(packed: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Popcount of each 32-bit word (int32 tensor) -> int32 counts."""
-    as_bytes = x.contiguous().view(torch.uint8).reshape(*x.shape, 4)
-    table = _POPCOUNT8_T.to(x.device)
-    return table[as_bytes.to(torch.int64)].sum(dim=-1, dtype=torch.int32)
+    """Popcount of each 32-bit word (int32 tensor, uint32 bit pattern)
+    -> int32 counts, by shifts and masks.  The arithmetic right shift of
+    a negative word fills bits that the masks drop, so the counts are
+    those of the uint32 words."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
 
 
 def hamming_distance(a_packed: torch.Tensor,
@@ -147,7 +159,6 @@ def asymmetric_cosine(
 # ---------------------------------------------------------------------------
 
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
-_POPCOUNT8_T = torch.from_numpy(_POPCOUNT8.astype(np.int32))
 
 
 def sign_vectors_np(vecs: np.ndarray, planes) -> np.ndarray:
@@ -189,3 +200,51 @@ def to_packed_tensor(sig, device: "torch.device | str" = "cpu") -> torch.Tensor:
 def to_numpy_u32(packed: torch.Tensor) -> np.ndarray:
     """int32 packed tensor -> numpy uint32 array (the reference layout)."""
     return packed.detach().cpu().numpy().view(np.uint32)
+
+
+def sign_tensor(x, planes: torch.Tensor) -> torch.Tensor:
+    """[N, dim] vectors (array or tensor) -> [N, bits//32] int32 packed
+    signatures on ``planes``' device, signed on the host by
+    ``sign_vectors_np`` so the bits do not depend on the device."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return to_packed_tensor(
+        sign_vectors_np(x, planes.detach().cpu().numpy()), planes.device)
+
+
+class LSHIndex(NamedTuple):
+    """Packed signatures + the hyperplanes that produced them, on the
+    planes' device."""
+    packed: torch.Tensor   # [N, bits//32] int32 (uint32 bit pattern)
+    planes: torch.Tensor   # [bits, dim] float32
+    bits: int
+
+    @staticmethod
+    def build(x, cfg: LSHConfig,
+              device: "torch.device | str" = "cuda") -> "LSHIndex":
+        """Sign the rows of ``x`` under planes drawn from ``cfg.seed``
+        (``hyperplanes``), kept on ``device``: CUDA unless the caller
+        asks for the CPU (asking for CUDA without a GPU raises)."""
+        from repro_torch.kernels.common import resolve_device
+        device = resolve_device(device)
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        x = np.atleast_2d(np.asarray(x, np.float32))
+        planes = hyperplanes(cfg, x.shape[-1], device)
+        return LSHIndex(sign_tensor(x, planes), planes, cfg.bits)
+
+    def sign(self, x) -> torch.Tensor:
+        """Signature for new vectors under the same hyperplanes ([dim]
+        or [N, dim]; always [N, bits//32])."""
+        return sign_tensor(x, self.planes)
+
+    def similarities(self, query_vec, temperature: float = 1.0
+                     ) -> torch.Tensor:
+        """exp-cosine similarity of ``query_vec`` to every indexed item,
+        [N] float32: the Hamming similarity kernel on a CUDA index, its
+        plain version on a CPU one (the JAX package's ``use_kernel``
+        flag has no counterpart)."""
+        from repro_torch.kernels.hamming import ops as hamming_ops
+        q = self.sign(query_vec)
+        return hamming_ops.hamming_similarity(
+            q, self.packed, self.bits, temperature=temperature)[0]

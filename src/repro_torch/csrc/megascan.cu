@@ -1,14 +1,19 @@
-// One-launch megascan kernels for Hopper (sm_90a): the asym scan of a
-// host's whole shard group over the block-aligned packed payload
+// One-launch megascan kernels for Hopper (sm_90a): the scan of a host's
+// whole shard group over the block-aligned packed payload
 // (repro_torch/kernels/megascan/ops.py::build_payload: every shard's
 // rows padded to TM-row blocks and concatenated, padding rows carry an
 // out-of-range slot).
 //
-// Replaces three Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package:
 //   * src/repro/kernels/megascan/kernel.py,
 //     asym_megascan_segsum_db_kernel (bodies _asym_segsum_db_body,
 //     _segsum_block): per-(query, shard-slot) sums of
 //     exp(beta * asym-cos) over the payload in one launch, [B, S];
+//   * src/repro/kernels/megascan/kernel.py,
+//     hamming_megascan_segsum_db_kernel (body _hamming_segsum_db_body,
+//     tile _hamming_tile): the same sums in sym mode, of
+//     exp(beta * cos(pi * m / bits)) with m the Hamming distance of
+//     packed query and row signatures, [B, S];
 //   * src/repro/kernels/megascan/kernel.py, asym_megascan_topk_kernel
 //     (bodies _asym_topk_stream_body, _topk_block, bitonic_sort_desc)
 //     and asym_megascan_topk_db_kernel (body _asym_topk_db_body): per
@@ -17,27 +22,31 @@
 //     TPU kernels differ only in their data-movement schedule and
 //     give the same candidates; this one kernel ports both.
 //
-// What bounds them on the card: as for asym.cu, the fp32 sign product
-// (2 * bits operations per query and real row) — and, in the top-k,
-// its sort network (per block and query, TM/2 * log2(TM) *
+// What bounds them on the card: in asym mode, as for asym.cu, the fp32
+// sign product (2 * bits operations per query and real row) — and, in
+// the top-k, its sort network (per block and query, TM/2 * log2(TM) *
 // (log2(TM) + 1) / 2 compare-exchanges in shared memory, whatever the
-// number of real rows).  Bytes are the real rows' signatures, bits/8
-// per row, read once per query tile.
+// number of real rows).  In sym mode, as for hamming.cu, the bits/32
+// popcounts per query and real row, issued at 16 per clock per SM.
+// Bytes are the real rows' signatures, bits/8 per row, read once per
+// query tile.
 //
 // What the design does about it:
 //   * padding is most of the payload at real scale (shards of ~26 docs
-//     padded to 256 rows): the sum kernel never reads it — a warp owns
+//     padded to 256 rows): the sum kernels never read it — a warp owns
 //     one slot and walks only its real rows [row_start, row_start +
-//     count), with the slice-1 per-slot sum (slot_sum in
-//     asym_tile.cuh).  So a slot's sum depends only on its own rows in
-//     a fixed order, and three properties hold by construction, bit
-//     for bit: group launch == per-shard launch, this kernel == the
-//     slice-1 segment sum over the same slot map, and run to run.
-//     Empty slots give exact zeros;
+//     count), with the per-slot sum of the segment-sum kernel of the
+//     same mode (asym_tile::slot_sum, hamming_tile::slot_sum).  So a
+//     slot's sum depends only on its own rows in a fixed order, and
+//     three properties hold by construction, bit for bit: group launch
+//     == per-shard launch, this kernel == the segment sum over the same
+//     slot map (the streamed schedule), and run to run.  Empty slots
+//     give exact zeros;
 //   * the top-k kernel reads a row's signature only where its slot is
 //     real, and masks the rest to -inf before the sort;
-//   * a block computes its TB-query projection once into shared memory
-//     and serves SLOTS_PER_WARP slots per warp (sum) or TOPK_BLOCKS
+//   * a block stages its TB-query projection (asym) or TB query
+//     signatures and value table (sym) once into shared memory and
+//     serves SLOTS_PER_WARP slots per warp (sum) or TOPK_BLOCKS
 //     payload blocks (top-k).
 // The TPU's 2-slot DMA ring is a data-movement schedule; this first
 // port reads signatures straight from device memory (no cp.async/TMA
@@ -47,6 +56,7 @@
 // right after the launch.
 
 #include "asym_tile.cuh"
+#include "hamming_tile.cuh"
 
 namespace {
 
@@ -127,6 +137,39 @@ megascan_topk_kernel(const float* __restrict__ q,
   }
 }
 
+__global__ void __launch_bounds__(hamming_tile::THREADS)
+hamming_megascan_segsum_kernel(const uint32_t* __restrict__ q,
+                               const uint32_t* __restrict__ sig,
+                               const int* __restrict__ row_start,
+                               const int* __restrict__ row_count,
+                               const float* __restrict__ table,
+                               float* __restrict__ out, int B, int n_rows,
+                               int W, int S) {
+  namespace ht = hamming_tile;
+  extern __shared__ uint4 hsmem4[];
+  uint32_t* q_t = reinterpret_cast<uint32_t*>(hsmem4);
+  float* tab = reinterpret_cast<float*>(q_t + (size_t)ht::TB * W);
+  const int q0 = blockIdx.y * ht::TB;
+  ht::stage(q, table, B, W, q0, q_t, tab);
+  const int nb = min(ht::TB, B - q0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int s_first = blockIdx.x * (ht::WARPS * SLOTS_PER_WARP)
+                      + warp * SLOTS_PER_WARP;
+  for (int i = 0; i < SLOTS_PER_WARP; ++i) {
+    const int s = s_first + i;
+    if (s >= S) break;                       // uniform across the warp
+    const int lo = max(0, row_start[s]);
+    const int hi = (int)min((long long)n_rows,
+                            (long long)row_start[s] + row_count[s]);
+    float acc[ht::TB];
+    ht::slot_sum(sig, lo, hi, W, hsmem4, tab, acc);
+#pragma unroll
+    for (int b = 0; b < ht::TB; ++b)
+      if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,6 +206,21 @@ int megascan_topk_launch(const float* q, const float* planes,
   megascan_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, planes, sig, slots, vals, pos, B, dim, bits, W, n_blocks, tm, K,
       n_valid, scale, temperature);
+  return (int)cudaGetLastError();
+}
+
+int hamming_megascan_segsum_launch(const uint32_t* q, const uint32_t* sig,
+                                   const int* row_start, const int* row_count,
+                                   const float* table, float* out, int B,
+                                   int n_rows, int W, int S, void* stream) {
+  cudaGetLastError();
+  const size_t smem = hamming_tile::smem_bytes(W);
+  const int per_block = hamming_tile::WARPS * SLOTS_PER_WARP;
+  const dim3 grid((S + per_block - 1) / per_block,
+                  (B + hamming_tile::TB - 1) / hamming_tile::TB);
+  hamming_megascan_segsum_kernel<<<grid, hamming_tile::THREADS, smem,
+                                   (cudaStream_t)stream>>>(
+      q, sig, row_start, row_count, table, out, B, n_rows, W, S);
   return (int)cudaGetLastError();
 }
 

@@ -16,12 +16,19 @@ it).
     descending and ties by ascending position, rows whose slot is not
     below ``n_valid_slots`` at -inf; [B, n_blocks*k] float32 values and
     int32 positions.
+  * ``hamming_megascan_segsum_kernel`` replaces
+    ``kernels/megascan/kernel.py::hamming_megascan_segsum_db_kernel``:
+    the sum in sym mode, [B, S] float32 per-slot sums of exp(beta *
+    cos(pi * m / bits)) over each slot's real rows, m the Hamming
+    distance of packed signatures; bitwise equal to the Hamming segment
+    sum (``kernels/hamming``) over the same rows.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises if the launch
-reported a CUDA error, and adds one to its ``launches`` counter.  Query
-rows arrive unit-normalised (``ops`` does that).
+reported a CUDA error, and adds one to its ``launches`` counter.  asym
+query rows arrive unit-normalised (``ops`` does that); sym queries are
+packed int32 signatures.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.asym.kernel import (_F, _I, _P, _check,
                                              _check_grid, _check_smem, _scale)
+from repro_torch.kernels.hamming.kernel import check_bits, check_operands
+from repro_torch.kernels.hamming.ref import value_table
 
 
 def _lib() -> ctypes.CDLL:
@@ -44,6 +53,9 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
             _P]
         lib.megascan_topk_launch.restype = _I
+        lib.hamming_megascan_segsum_launch.argtypes = [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.hamming_megascan_segsum_launch.restype = _I
         lib._megascan_typed = True
     return lib
 
@@ -119,3 +131,32 @@ def asym_megascan_topk_kernel(q: torch.Tensor, planes: torch.Tensor,
 
 
 asym_megascan_topk_kernel.launches = 0
+
+
+def hamming_megascan_segsum_kernel(q: torch.Tensor, sig: torch.Tensor,
+                                   row_start: torch.Tensor,
+                                   row_count: torch.Tensor, bits: int, *,
+                                   temperature: float = 1.0) -> torch.Tensor:
+    """[B, W] packed int32 query signatures x a payload's [n_rows, W]
+    packed rows with per-slot real-row ranges -> [B, S] float32 sums of
+    exp(temperature * cos(pi * m / bits)), on the hand-written CUDA
+    kernel."""
+    b, n_rows, w = check_operands(q, sig)
+    check_bits(bits)
+    _check_index(row_start, "row_start", q.device)
+    s = row_start.shape[0]
+    _check_index(row_count, "row_count", q.device, s)
+    out = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    table = value_table(bits, w, temperature, q.device)
+    rc = _lib().hamming_megascan_segsum_launch(
+        q.data_ptr(), sig.data_ptr(), row_start.data_ptr(),
+        row_count.data_ptr(), table.data_ptr(), out.data_ptr(), b, n_rows,
+        w, s, common.stream_ptr(q.device))
+    common.check_launch(rc, "hamming_megascan_segsum")
+    hamming_megascan_segsum_kernel.launches += 1
+    return out
+
+
+hamming_megascan_segsum_kernel.launches = 0

@@ -10,31 +10,36 @@ real-row range (``row_start``, ``row_count``), so the CUDA sum kernel
 walks only real rows: at serving scale (shards of ~26 docs, TM = 256)
 padding is ~90 % of the payload.
 
-Parity, bit for bit, as in the reference:
+Parity, bit for bit, as in the reference, in both modes (asym: real
+query vectors and the hyperplanes; hamming, the paper's sym mode:
+packed query signatures):
 
   * group == per-shard: a slot's sum, and its ranked candidates, depend
     only on its own rows in a fixed order, so the group payload's
     output for slot s equals a single-shard payload's output for shard
     s (``MegascanSpec.run_shard`` is that per-shard route: one launch
     per shard, the same kernels);
-  * streamed == pipelined: ``double_buffer=False`` runs the slice-1
-    segment sum (``kernels/asym``) over the payload's slot map,
-    ``double_buffer=True`` the megascan kernel over the slot ranges;
-    both reduce each slot's rows with the same per-slot sum.
+  * streamed == pipelined: ``double_buffer=False`` runs the segment sum
+    of the mode (``kernels/asym``, ``kernels/hamming``) over the
+    payload's slot map, ``double_buffer=True`` the megascan kernel over
+    the slot ranges; both reduce each slot's rows with the same
+    per-slot sum.
 
 On the CPU the plain versions (``ref.py``) keep both properties.
 
 ``MegascanSpec`` is the executor-facing handle: ``scan_fns()`` returns
 per-query scan fns whose composite ``run_shared_scan`` closure carries
-the spec, so ``ShardTaskExecutor.map_shards`` can route a whole shard
+the spec, so ``ShardTaskExecutor.map_shard_batch`` can route a whole shard
 group as ONE launch (``run_group``) while emitting per-(query, shard)
-results in exactly the layout the shared-scan gather consumes.
+results in exactly the layout the shared-scan gather consumes.  In sym
+mode the spec signs its query vectors as the index does, on the host,
+so their bits do not depend on the device.
 
-Not ported: ``mode="hamming"`` (the sym slice; it raises
-``NotImplementedError``), and the TPU-only arguments ``tb``,
-``pad_lanes`` and ``interpret``.  Rows 9 and 10 of the TPU kernel table
-(the ranked megascan's two schedules) compute one function and share
-one CUDA kernel, so ``megascan_topk`` takes no ``double_buffer``.
+Not ported: the TPU-only arguments ``tb``, ``pad_lanes`` and
+``interpret``.  Rows 9 and 10 of the TPU kernel table (the ranked
+megascan's two schedules) compute one function and share one CUDA
+kernel, so ``megascan_topk`` takes no ``double_buffer``; the ranked
+megascan is asym only, as in the reference.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.core import lsh as lsh_mod
 from repro_torch.data.store import plan_blocked_layout
 from repro_torch.kernels import common
 from repro_torch.kernels.asym import ops as asym_ops
+from repro_torch.kernels.hamming import ops as hamming_ops
 from repro_torch.kernels.megascan import kernel as _km
 from repro_torch.kernels.megascan import ref as _mref
 
@@ -57,11 +63,6 @@ _INT32_MAX = 2 ** 31 - 1
 
 def _lane_pad(n: int) -> int:
     return max(128, -(-int(n) // 128) * 128)
-
-
-def _sym_unsupported() -> NotImplementedError:
-    return NotImplementedError(
-        "the Hamming (sym) megascan is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,27 +171,37 @@ def megascan_segment_sums(payload: MegascanPayload, queries, planes,
                           ) -> np.ndarray:
     """One-launch per-(query, shard-slot) partial sums over the packed
     payload: [B, n_slots] float64.  ``mode="asym"`` takes [B, dim] real
-    query vectors (any norm) and the hyperplanes.
+    query vectors (any norm) and the hyperplanes; ``mode="hamming"``
+    takes [B, W] packed query signatures (uint32 arrays or int32
+    tensors; ``planes`` ignored).
 
     ``double_buffer`` picks the schedule: True (the default on CUDA)
     runs the megascan kernel over the slots' real-row ranges, False
-    the slice-1 segment sum over the payload's slot map.  The two are
-    bitwise equal."""
-    if mode == "hamming":
-        raise _sym_unsupported()
-    if mode != "asym":
+    the segment sum of the mode over the payload's slot map.  The two
+    are bitwise equal."""
+    if mode == "asym":
+        q_raw, pl_ = _operands(payload, queries, planes)
+        b = 1 if q_raw.dim() == 1 else q_raw.shape[0]
+    elif mode == "hamming":
+        q_raw = lsh_mod.to_packed_tensor(queries, payload.sig.device)
+        q_raw = q_raw[None, :] if q_raw.dim() == 1 else q_raw
+        b = q_raw.shape[0]
+    else:
         raise ValueError(f"unknown megascan mode {mode!r}")
-    q_raw, pl_ = _operands(payload, queries, planes)
-    b = 1 if q_raw.dim() == 1 else q_raw.shape[0]
     if payload.n_rows == 0:
         return np.zeros((b, payload.n_slots), np.float64)
     if double_buffer is None:
         double_buffer = payload.sig.is_cuda
     if not double_buffer:
-        out = asym_ops.asym_exp_segment_sum(
-            q_raw, payload.sig, pl_, bits, payload.slots.reshape(-1),
-            payload.n_slots, temperature=temperature)
-    else:
+        if mode == "asym":
+            out = asym_ops.asym_exp_segment_sum(
+                q_raw, payload.sig, pl_, bits, payload.slots.reshape(-1),
+                payload.n_slots, temperature=temperature)
+        else:
+            out = hamming_ops.hamming_segment_similarity(
+                q_raw, payload.sig, bits, payload.slots.reshape(-1),
+                payload.n_slots, temperature=temperature)
+    elif mode == "asym":
         q = asym_ops._prep_queries(q_raw)
         if common.on_cuda(q, payload.sig, pl_):
             out = _km.asym_megascan_segsum_kernel(
@@ -201,6 +212,14 @@ def megascan_segment_sums(payload: MegascanPayload, queries, planes,
             out = _mref.asym_megascan_segsum_ref(
                 q, payload.sig, pl_, bits, payload.row_start,
                 payload.row_count, temperature)
+    elif common.on_cuda(q_raw, payload.sig):
+        out = _km.hamming_megascan_segsum_kernel(
+            q_raw.contiguous(), payload.sig, payload.row_start,
+            payload.row_count, bits, temperature=temperature)
+    else:
+        out = _mref.hamming_megascan_segsum_ref(
+            q_raw, payload.sig, bits, payload.row_start, payload.row_count,
+            temperature)
     return out.cpu().numpy().astype(np.float64)
 
 
@@ -302,16 +321,19 @@ class MegascanSpec:
         self.n_queries = vecs.shape[0]
         self.mode = mode or ("asym" if index.lsh_mode == "asym"
                              else "hamming")
-        if self.mode == "hamming":
-            raise _sym_unsupported()
-        if self.mode != "asym":
+        if self.mode not in ("asym", "hamming"):
             raise ValueError(f"unknown megascan mode {self.mode!r}")
+        if ranked_k is not None and self.mode != "asym":
+            raise ValueError("ranked megascan requires asym mode")
         self.ranked_k = ranked_k
         self.tm = int(tm)
         self.temperature = float(index.temperature if temperature is None
                                  else temperature)
         self.planes = index._device_planes()
-        self.queries = torch.as_tensor(vecs, device=index.device)
+        if self.mode == "asym":
+            self.queries = torch.as_tensor(vecs, device=index.device)
+        else:
+            self.queries = index.query_sig_tensor(vecs)
         self.stats: Dict[str, int] = {"group_launches": 0,
                                       "shard_launches": 0}
         self.last_record: Optional[dict] = None
@@ -327,7 +349,7 @@ class MegascanSpec:
         if self.ranked_k is None:
             return megascan_segment_sums(
                 payload, self.queries, self.planes, self.index.bits,
-                temperature=self.temperature)
+                mode=self.mode, temperature=self.temperature)
         return megascan_topk(
             payload, self.queries, self.planes, self.index.bits,
             self.ranked_k, temperature=self.temperature)
@@ -342,15 +364,18 @@ class MegascanSpec:
                 "values": np.asarray(vals[qi, slot, :k_s])}
 
     def _flops(self, payload: MegascanPayload) -> int:
-        """fp32 operations of the scan as the CUDA kernels do it: the
-        query projection, the +-1 dot over the real rows (no padding row
-        is scored) and one add per (query, real row).  The reference's
-        count adds its one-hot reduction over the padded payload, which
-        has no counterpart here."""
+        """Operations of the scan as the CUDA kernels do it, over the
+        real rows (no padding row is scored) with one add per (query,
+        real row).  asym: the fp32 query projection and the +-1 dot;
+        hamming: an XOR, a popcount and an add per (query, real row,
+        word).  The reference's count adds its one-hot reduction over
+        the padded payload, which has no counterpart here."""
         b = self.n_queries
         bits = int(self.index.bits)
-        dim = int(self.planes.shape[1])
         rows = payload.real_rows
+        if self.mode == "hamming":
+            return 3 * b * rows * int(payload.sig.shape[1]) + b * rows
+        dim = int(self.planes.shape[1])
         return 2 * b * bits * dim + 2 * b * rows * bits + b * rows
 
     def run_group(self, shard_ids: Sequence[int],

@@ -3,12 +3,13 @@ as ``csrc/megascan.cu`` written as ordinary tensor ops.  CPU tensors
 take these; ``chip_smoke.py`` holds the kernels against them on the
 card.
 
-Both score with the asym plain versions' ``exp_sim_rows``, whose value
-for a row depends on that row alone, and read only real rows.  The sum
-adds each slot's rows in order with ``slot_sums``, the primitive of the
-slice-1 CSR plain version (the streamed schedule), so on the CPU too a
-group payload gives the bits of a single-shard payload, and the two
-schedules give the same bits.
+The asym versions score with the asym plain versions' ``exp_sim_rows``,
+the sym version with the Hamming plain versions' table lookup; in both
+a row's value depends on that row alone, and only real rows are read.
+The sums add each slot's rows in order with ``slot_sums``, the
+primitive of the CSR segment-sum plain versions (the streamed
+schedule), so on the CPU too a group payload gives the bits of a
+single-shard payload, and the two schedules give the same bits.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels.asym.ref import exp_sim_rows, slot_sums
+from repro_torch.kernels.hamming.ref import hamming_similarity_ref
 
 
 def _slot_rows(row_start: torch.Tensor, row_count: torch.Tensor
@@ -43,6 +45,22 @@ def asym_megascan_segsum_ref(
     slot's real rows."""
     rows = _slot_rows(row_start, row_count)
     vals = exp_sim_rows(query_vecs, sig[rows], planes, bits, temperature)
+    count = row_count.to(torch.int64)
+    return slot_sums(vals, torch.cumsum(count, 0) - count, count)
+
+
+def hamming_megascan_segsum_ref(
+    q_packed: torch.Tensor,     # [B, W] int32 packed query signatures
+    sig: torch.Tensor,          # [n_rows, W] int32 block-aligned payload
+    bits: int,
+    row_start: torch.Tensor,    # [S] int32 first real row of each slot
+    row_count: torch.Tensor,    # [S] int32 real rows of each slot
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """[B, S] float32 per-slot sums of exp(beta * cos(pi * m / bits))
+    over each slot's real rows."""
+    rows = _slot_rows(row_start, row_count)
+    vals = hamming_similarity_ref(q_packed, sig[rows], bits, temperature)
     count = row_count.to(torch.int64)
     return slot_sums(vals, torch.cumsum(count, 0) - count, count)
 

@@ -48,3 +48,17 @@ def ragged_segments(counts, dim: int, bits: int, seed: int, dup: bool = False):
         segs.append((sig, np.arange(base, base + c, dtype=np.int64)))
         base += c
     return segs, rng.normal(size=(5, dim)).astype(np.float32), planes.numpy()
+
+
+def sign_clear(vecs, planes, margin: float = 1e-4) -> np.ndarray:
+    """[B] bool: True for the rows of ``vecs`` whose every projection on
+    a hyperplane lies farther than ``margin`` from 0, relative to the two
+    norms.  Two matrix products that round differently (numpy's and
+    another framework's) give such a row the same sign bits, so sym
+    parity tests draw their query vectors from these rows."""
+    v = np.atleast_2d(_np(vecs)).astype(np.float64)
+    p = np.atleast_2d(_np(planes)).astype(np.float64)
+    norms = (np.linalg.norm(v, axis=1, keepdims=True)
+             * np.linalg.norm(p, axis=1)[None, :])
+    cos = (v @ p.T) / np.maximum(norms, 1e-30)
+    return (np.abs(cos) > margin).all(axis=1)

@@ -193,3 +193,135 @@ def test_cuda_megascan_matches_plain_and_is_bitwise(cuda_device, counts, tm,
         i1, v1 = mops.megascan_topk(one, q, planes, 64, 5, temperature=4.0)
         assert np.array_equal(ids[:, s], i1[:, 0])
         assert np.array_equal(vals[:, s], v1[:, 0])
+
+
+# ----------------------------------------------------------------------
+# slice 3: the Hamming (sym) kernels
+# ----------------------------------------------------------------------
+def _words(rng, n, w, device):
+    return lsh.to_packed_tensor(
+        rng.integers(0, 2**32, (n, w), dtype=np.uint32), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,s,words,bits,temp", [
+    (1, 7, 3, 4, 128, 1.0), (3, 512, 37, 4, 128, 8.0),
+    (8, 513, 121, 8, 256, 4.0), (5, 64, 3, 2, 64, 1.0),
+    (16, 1000, 128, 1, 32, 8.0), (48, 20000, 800, 8, 256, 8.0),
+])
+def test_cuda_hamming_kernels_match_plain(cuda_device, n, m, s, words, bits,
+                                          temp):
+    from repro_torch.kernels.hamming import kernel as hker
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming import ref as href
+    rng = np.random.default_rng(n + m + words)
+    q, db = _words(rng, n, words, cuda_device), _words(rng, m, words,
+                                                      cuda_device)
+    counts = (hker.hamming_distance_kernel.launches,
+              hker.hamming_similarity_kernel.launches,
+              hker.hamming_segment_similarity_kernel.launches)
+    dist = hops.hamming_distance(q, db)
+    assert torch.equal(dist, href.hamming_distance_ref(q, db))    # exact
+    sim = hops.hamming_similarity(q, db, bits, temperature=temp)
+    assert torch.equal(sim, href.hamming_similarity_ref(q, db, bits, temp))
+    seg = torch.from_numpy(rng.integers(-1, s + 2, m)).to(cuda_device)
+    got = hops.hamming_segment_similarity(q, db, bits, seg, s,
+                                          temperature=temp)
+    again = hops.hamming_segment_similarity(q, db, bits, seg, s,
+                                            temperature=temp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)            # bitwise run to run
+    want = href.hamming_segment_similarity_ref(q, db, bits, seg, s, temp)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    occupied = torch.zeros(s, dtype=torch.bool, device=cuda_device)
+    occupied[seg[(seg >= 0) & (seg < s)]] = True
+    assert bool((got[:, ~occupied] == 0).all())
+    assert (hker.hamming_distance_kernel.launches,
+            hker.hamming_similarity_kernel.launches,
+            hker.hamming_segment_similarity_kernel.launches) == (
+                counts[0] + 1, counts[1] + 1, counts[2] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_hamming_wrappers_reject_bad_operands(cuda_device):
+    from repro_torch.kernels.hamming import kernel as hker
+    rng = np.random.default_rng(0)
+    q, db = _words(rng, 2, 4, cuda_device), _words(rng, 9, 4, cuda_device)
+    with pytest.raises(TypeError):
+        hker.hamming_distance_kernel(q.float(), db)
+    with pytest.raises(ValueError):
+        hker.hamming_distance_kernel(q[:, :2].contiguous(), db)
+    with pytest.raises(ValueError):
+        hker.hamming_similarity_kernel(q, db.cpu(), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,tm", [(RAGGED, 8), (RAGGED, 16),
+                                       ((300, 40, 9), 256)])
+def test_cuda_hamming_megascan_matches_plain_and_is_bitwise(cuda_device,
+                                                            counts, tm):
+    from repro_torch.kernels.megascan import kernel as mker
+    from repro_torch.kernels.megascan import ops as mops
+    from repro_torch.kernels.megascan import ref as mref
+    segs, q, planes = ragged_segments(counts, 16, 64, tm + len(counts))
+    qsig = lsh.sign_vectors_np(q, planes)
+    pay = mops.build_payload(segs, tm=tm, device=cuda_device)
+    n = mker.hamming_megascan_segsum_kernel.launches
+    got = mops.megascan_segment_sums(pay, qsig, None, 64, mode="hamming",
+                                     temperature=4.0)
+    assert mker.hamming_megascan_segsum_kernel.launches == n + 1
+    assert np.array_equal(got, mops.megascan_segment_sums(
+        pay, qsig, None, 64, mode="hamming", temperature=4.0))
+    streamed = mops.megascan_segment_sums(pay, qsig, None, 64,
+                                          mode="hamming", temperature=4.0,
+                                          double_buffer=False)
+    assert np.array_equal(got, streamed)
+    want = mref.hamming_megascan_segsum_ref(
+        lsh.to_packed_tensor(qsig, cuda_device), pay.sig, 64, pay.row_start,
+        pay.row_count, 4.0)
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-4)
+    assert (got[:, np.asarray(counts) == 0] == 0).all()
+    for s, seg in enumerate(segs):
+        one = mops.build_payload([seg], tm=tm, device=cuda_device)
+        single = mops.megascan_segment_sums(one, qsig, None, 64,
+                                            mode="hamming", temperature=4.0)
+        assert np.array_equal(got[:, s], single[:, 0])
+
+
+@pytest.mark.cuda
+def test_cuda_sym_index_scores_through_the_kernels(cuda_device):
+    """A sym index on the card scores through the Hamming kernels and
+    agrees with the same index on the CPU: per-value bit for bit (one
+    table), the sums within rtol=1e-4, the top-k ids exactly."""
+    from repro_torch.kernels.hamming import kernel as hker
+    cfg = SyntheticCorpusConfig(n_docs=80, vocab_size=300, n_topics=4, seed=0)
+    docs, _ = generate_text_corpus(cfg)
+    corpus = ShardedCorpus.from_documents(docs, cfg.vocab_size,
+                                          shard_tokens=1024)
+    rng = np.random.default_rng(0)
+    model = SimpleNamespace(
+        word_vecs=rng.normal(size=(cfg.vocab_size, 16)).astype(np.float32),
+        doc_vecs=rng.normal(size=(corpus.n_docs, 16)).astype(np.float32))
+    idx = build_index(corpus, model, lsh.LSHConfig(bits=64),
+                      granularity="doc", lsh_mode="sym")
+    cpu = dataclasses.replace(idx, device="cpu")
+    queries, words = [[3, 5, 9], [2], [10, 11]], [1, 2, 5, 17]
+    n_sim = hker.hamming_similarity_kernel.launches
+    n_seg = hker.hamming_segment_similarity_kernel.launches
+    rows = idx.shard_similarities_batch(queries)
+    w_rows = idx.word_shard_similarities_batch(words)
+    ids, vals = idx.topk_doc_similarities_batch(queries, k=7)
+    assert hker.hamming_segment_similarity_kernel.launches == n_seg + 1
+    assert hker.hamming_similarity_kernel.launches == n_sim + 2
+    np.testing.assert_allclose(rows, cpu.shard_similarities_batch(queries),
+                               rtol=1e-4)
+    assert np.array_equal(w_rows, cpu.word_shard_similarities_batch(words))
+    cids, cvals = cpu.topk_doc_similarities_batch(queries, k=7)
+    assert np.array_equal(ids, cids) and np.array_equal(vals, cvals)
+    lsh_idx = lsh.LSHIndex.build(model.doc_vecs, lsh.LSHConfig(bits=64),
+                                 device=cuda_device)
+    sims = lsh_idx.similarities(model.word_vecs[3], temperature=8.0)
+    assert sims.device.type == "cuda"
+    cpu_lsh = lsh.LSHIndex(lsh_idx.packed.cpu(), lsh_idx.planes.cpu(), 64)
+    assert torch.equal(sims.cpu(), cpu_lsh.similarities(model.word_vecs[3],
+                                                        temperature=8.0))

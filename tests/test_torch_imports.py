@@ -47,6 +47,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.megascan.kernel",
             "repro_torch.kernels.megascan.ref",
             "repro_torch.kernels.asym.ops",
+            "repro_torch.kernels.hamming", "repro_torch.kernels.hamming.ops",
+            "repro_torch.kernels.hamming.kernel",
+            "repro_torch.kernels.hamming.ref",
             "repro_torch.runtime.executor"} <= names
 
 

@@ -152,10 +152,19 @@ def test_cpu_index_launches_no_kernel(pair):
 
 
 def test_sym_mode_is_refused(pair):
+    """Sym mode answers on the planning and top-k entry points, fused
+    or not, through the Hamming kernels (``tests/test_torch_sym.py``
+    holds it to the reference)."""
     _, port = pair
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(port, lsh_mode="sym").shard_similarities_batch(
-            QUERIES)
+    sym = dataclasses.replace(port, lsh_mode="sym")
+    fused = sym.shard_similarities_batch(QUERIES)
+    assert fused.shape == (len(QUERIES), port.shard_vecs.shape[0])
+    assert np.all(np.isfinite(fused)) and np.all(fused > 0)
+    np.testing.assert_allclose(
+        fused, sym.shard_similarities_batch(QUERIES, fused=False), rtol=1e-5)
+    ids, vals = sym.topk_doc_similarities_batch(QUERIES, k=4)
+    assert ids.shape == vals.shape == (len(QUERIES), 4)
+    assert np.all(np.diff(vals, axis=1) <= 0)
 
 
 def test_build_index_matches_reference_signatures(small_corpus, pv_model,

@@ -56,6 +56,12 @@ def _segments(counts, dim, bits, seed, dup=False):
     return segs, q, planes
 
 
+def _signs(q, planes):
+    """The reference's packed signatures of query vectors (uint32)."""
+    return np.asarray(jlsh.pack_bits(jlsh.signature_bits(
+        jnp.asarray(q), jnp.asarray(planes))))
+
+
 def _both(segs, tm):
     return (jops.build_payload(segs, tm=tm),
             tops.build_payload(segs, tm=tm, device="cpu"))
@@ -176,12 +182,83 @@ def test_empty_payload_is_zeros_and_one_shard_host():
 
 
 def test_hamming_mode_is_refused():
+    """The Hamming sum runs on packed query signatures, and an unknown
+    mode is refused, as in the reference."""
     segs, q, planes = _segments((9,), 16, 64, seed=2)
     tp = tops.build_payload(segs, tm=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tops.megascan_segment_sums(tp, q, planes, 64, mode="hamming")
+    qsig = _signs(q, planes)
+    got = tops.megascan_segment_sums(tp, qsig, None, 64, mode="hamming")
+    assert got.shape == (5, 1) and np.all(got > 0)
     with pytest.raises(ValueError):
         tops.megascan_segment_sums(tp, q, planes, 64, mode="cosine")
+
+
+# ----------------------------------------------------------------------
+# Hamming (sym) segment sums
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("counts,tm,seed", [(RAGGED, 8, 7), (RAGGED, 16, 8),
+                                            ((300, 40, 9), 256, 9)])
+def test_hamming_segment_sums_match_reference(counts, tm, seed,
+                                              double_buffer):
+    segs, q, planes = _segments(counts, 16, 64, seed)
+    jp, tp = _both(segs, tm)
+    qsig = _signs(q, planes)
+    want = jops.megascan_segment_sums(jp, jnp.asarray(qsig), None, 64,
+                                      mode="hamming", temperature=4.0)
+    oracle = jref.megascan_segment_sums_ref(jp, qsig, planes, 64,
+                                            mode="hamming", temperature=4.0)
+    got = tops.megascan_segment_sums(tp, qsig, None, 64, mode="hamming",
+                                     temperature=4.0,
+                                     double_buffer=double_buffer)
+    assert got.dtype == np.float64 and got.shape == (5, len(counts))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_allclose(got, oracle, rtol=1e-4)
+    assert (got[:, np.asarray(counts) == 0] == 0).all()
+
+
+@pytest.mark.parametrize("counts,tm,seed", [(RAGGED, 8, 11), (RAGGED, 32, 12),
+                                            ((300, 40, 9), 256, 13)])
+def test_hamming_streamed_equals_pipelined_bitwise(counts, tm, seed):
+    segs, q, planes = _segments(counts, 16, 64, seed)
+    tp = tops.build_payload(segs, tm=tm, device="cpu")
+    qsig = _signs(q, planes)
+    streamed = tops.megascan_segment_sums(tp, qsig, None, 64, mode="hamming",
+                                          temperature=8.0,
+                                          double_buffer=False)
+    pipelined = tops.megascan_segment_sums(tp, qsig, None, 64,
+                                           mode="hamming", temperature=8.0,
+                                           double_buffer=True)
+    np.testing.assert_array_equal(streamed, pipelined)
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_hamming_group_equals_single_shard_bitwise(double_buffer):
+    segs, q, planes = _segments(RAGGED, 16, 64, seed=13)
+    qsig = _signs(q, planes)
+    group = tops.megascan_segment_sums(
+        tops.build_payload(segs, tm=8, device="cpu"), qsig, None, 64,
+        mode="hamming", temperature=4.0, double_buffer=double_buffer)
+    for s, seg in enumerate(segs):
+        single = tops.megascan_segment_sums(
+            tops.build_payload([seg], tm=8, device="cpu"), qsig, None, 64,
+            mode="hamming", temperature=4.0, double_buffer=double_buffer)
+        np.testing.assert_array_equal(group[:, s], single[:, 0])
+
+
+def test_hamming_empty_payload_and_one_query_row():
+    segs, q, planes = _segments((0, 0), 16, 64, seed=1)
+    tp = tops.build_payload(segs, tm=8, device="cpu")
+    qsig = _signs(q, planes)
+    np.testing.assert_array_equal(
+        tops.megascan_segment_sums(tp, qsig, None, 64, mode="hamming"),
+        np.zeros((5, 2)))
+    segs, q, planes = _segments(RAGGED, 16, 64, seed=2)
+    tp = tops.build_payload(segs, tm=8, device="cpu")
+    qsig = _signs(q, planes)
+    one = tops.megascan_segment_sums(tp, qsig[2], None, 64, mode="hamming")
+    all_ = tops.megascan_segment_sums(tp, qsig, None, 64, mode="hamming")
+    np.testing.assert_array_equal(one[0], all_[2])
 
 
 # ----------------------------------------------------------------------
@@ -307,8 +384,9 @@ def test_index_megascan_payload_cached_until_reattach(pair):
     with pytest.raises(ValueError):
         TSpec(bare, port.query_vectors(QUERIES))
     sym = dataclasses.replace(port, lsh_mode="sym")
-    with pytest.raises(NotImplementedError):
-        TSpec(sym, port.query_vectors(QUERIES))
+    assert TSpec(sym, port.query_vectors(QUERIES)).mode == "hamming"
+    with pytest.raises(ValueError):
+        TSpec(sym, port.query_vectors(QUERIES), ranked_k=5)
 
 
 def _ragged_plans(n_queries, n_shards, rng):

@@ -160,6 +160,11 @@ def test_index_topk_requires_doc_vectors(pair):
     bare = dataclasses.replace(port, doc_sig=None, doc_vecs=None)
     with pytest.raises(ValueError):
         bare.topk_doc_similarities_batch(QUERIES, k=3)
+    # sym mode, refused before the Hamming kernels were ported, takes
+    # the reference's unfused route (``tests/test_torch_sym.py``)
     sym = dataclasses.replace(port, lsh_mode="sym")
-    with pytest.raises(NotImplementedError):
-        sym.topk_doc_similarities_batch(QUERIES, k=3)
+    ids, vals = sym.topk_doc_similarities_batch(QUERIES, k=3)
+    assert ids.shape == vals.shape == (len(QUERIES), 3)
+    uids, uvals = sym.topk_doc_similarities_batch(QUERIES, k=3, fused=False)
+    np.testing.assert_array_equal(ids, uids)
+    np.testing.assert_array_equal(vals, uvals)
