@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--n-docs 1048576]
+    python3 chip_smoke.py [--seed 0] [--n-docs 1048576] [--build-docs 65536]
 
 Phases, each of which raises (exit code not 0) on any failure:
 
@@ -14,7 +14,12 @@ Phases, each of which raises (exit code not 0) on any failure:
                 empty, unsorted and padding segments), rtol=1e-4, and
                 bitwise equal from run to run; the Hamming distance
                 (row 4, which no engine path runs) exactly and the
-                Hamming similarity bit for bit (one value table).
+                Hamming similarity bit for bit (one value table); the
+                negative-sampling gradients (row 11) within rtol=1e-5,
+                atol=1e-5 * t^2 (float32 dot products summed in another
+                order, amplified by the temperature t), the k-means
+                assignment (row 12) exactly, the first index on
+                duplicated centroids.
   4. small    — a small corpus served through the CUDA index and
                 through the same index on the CPU (plain versions), in
                 asym and in sym mode: probability rows agree
@@ -80,12 +85,49 @@ Phases, each of which raises (exit code not 0) on any failure:
                 path's exactly, ties included; rows 4 and 5 timed at
                 this shape.
 
-Each of the main paths (serving, megascan, top-k, and their sym
-counterparts) is driven with the launch counters set to 0 just before
-it and read just after; each of its kernels must have launched.  Row 5
-runs on three paths (the sym batch, the shard-granular planning, the
-sym top-k): its record's ``launches`` is the sym batch's count and
-``launches_by_path`` has each path's own.  The last three lines of standard
+ 12. train    — ``train_pv_dbow`` on the serving phase's corpus (2^20
+                docs) at the EmApprox PV settings (dim 64, 5 negatives,
+                4096 pairs a step, 2000 steps, lr 0.01, t 8): row 11
+                launches exactly once a step; the loss read every step
+                through the trainer's callback and printed every 100; the
+                wall of ``corpus_pairs`` (a call of its own) and of the
+                step loop; every row of both tables finite and of unit
+                norm (atol 1e-4); the mean loss of the last 100 steps
+                below the first 100's; row 11 at the step shape on unit
+                rows against its plain version (rtol 1e-5, atol 1e-6),
+                timed as device time (100 launches in a CUDA graph)
+                beside one host call's time, its plain version and bound.
+ 13. k-means  — ``spherical_kmeans`` of the trained doc vectors into
+                n_shards (39983) clusters, unbalanced (the reference's
+                ``_rebalance`` forms [n, k] and its argsort, 168 + 335 GB
+                here): row 12 launches once per iteration plus once; the
+                final assignment against the plain version on the card,
+                ids away from near-ties (top two within 1e-4), scores
+                within rtol 1e-4; iterations and the wall of each (from
+                ``spherical_kmeans``' callback), cluster sizes; row 12 timed (median of 5) beside its plain
+                version, the chunked ``torch.matmul`` + ``max`` (two
+                calls a chunk, TF32 off) and its bound.
+ 14. offline build and serve — the JAX package's pipeline in the order
+                of examples/serve_queries.py on a fresh corpus of
+                --build-docs documents from --seed: shard, train (as in
+                12), a real-valued pre-index, ``allocate_corpus``
+                (balanced: ``_rebalance`` fits at this size), the
+                doc-granular index (bits 256), and one
+                ``QueryBatch.execute`` of 48 mixed queries at rate 0.05.
+                Rows 11, 12, 1 and 2 must launch; the loss falls; the
+                reallocated corpus keeps every document and token and no
+                shard exceeds ``_rebalance``'s cap; the batch's rows agree
+                with the plain path (rtol 1e-4); the wall of each step
+                and the count-estimate errors are printed.
+
+Each of the main paths (serving, megascan, top-k, their sym
+counterparts, training, k-means and the offline build) is driven with
+the launch counters set to 0 just before it and read just after; each
+of its kernels must have launched.  Row 5 runs on three paths (the sym
+batch, the shard-granular planning, the sym top-k): its record's
+``launches`` is the sym batch's count and ``launches_by_path`` has
+each path's own; so do rows 1, 2, 11 and 12 (their first path and the
+offline build).  The last three lines of standard
 output are the card line, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -129,6 +171,7 @@ HAMMING_SHAPES = [  # (N, M, words), the reference's distance tests
 HAMMING_SEG_SHAPES = [  # (N, M, S, bits, beta), the reference's fused tests
     (4, 300, 37, 128, 8.0), (1, 64, 3, 64, 1.0), (8, 1000, 121, 256, 4.0),
 ]
+BUILD_BATCH = 48   # queries served by the offline-build phase
 # __popc results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table)
 POPC_PER_CLOCK_PER_SM = 16
@@ -181,6 +224,27 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, launches: int = 100, reps: int = 25) -> float:
+    """Median device time of one call of ``fn``: ``launches`` calls
+    captured in one CUDA graph, the graph replayed ``reps`` times
+    between CUDA events, each replay's time divided by ``launches``.
+    The replay launches the kernels back to back, so the host's dispatch
+    of each call (the wrapper's checks, its allocations and the ctypes
+    call) is not in it.  Capturing adds ``launches`` to the wrapper's
+    counter; call it after the counts were read."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, reps=reps, warmup=1) / launches
 
 
 def least_ops(b: int, m: int, bits: int, dim: int, per_row: int, *,
@@ -1453,6 +1517,388 @@ def topk_phase(dev: torch.device, ctx: dict) -> list:
     return [kr]
 
 
+# ----------------------------------------------------------------------
+# phase 3 (cont.): the offline-build kernels at the reference's shapes
+# ----------------------------------------------------------------------
+def negsamp_close(got, want, atol: float, what: str) -> float:
+    """Assert each of row 11's four outputs within rtol=1e-5 and ``atol``
+    of the plain version's; returns the max abs error."""
+    err = 0.0
+    for name, g, w in zip(("loss", "grad_d", "grad_w", "grad_wn"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=atol,
+                                   msg=lambda m: f"{what} {name}: {m}")
+        err = max(err, float((g.double() - w.double()).abs().max())
+                  if g.numel() else 0.0)
+    return err
+
+
+def kernel_phase_build(dev: torch.device) -> None:
+    """Rows 11 and 12 against their plain versions at the reference's
+    test shapes, each twice (bitwise run to run); row 12 also on
+    duplicated centroids, where the first index must win.  Row 11's
+    inputs here are N(0, 1), as the reference's are: two programs that
+    sum a float32 dot product in different orders differ by its
+    rounding, which the temperature amplifies once in the logit and
+    again in the gradient, so the gradients are held at atol 1e-5 * t^2
+    (tests/test_torch_negsamp.py measures it); on unit rows (the step
+    shape, phase 12) the reference's atol 1e-6 holds."""
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.kernels.kmeans import ref as kref
+    from repro_torch.kernels.negsamp import kernel as nk
+    from repro_torch.kernels.negsamp import ref as nref
+    from repro_torch.testing import (KMEANS_SHAPES, NEGSAMP_SHAPES,
+                                     assert_assign_away_from_ties)
+
+    for b, dim, k, t in NEGSAMP_SHAPES:
+        rng = np.random.default_rng(b)
+        d, w, wn = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                    .to(dev) for s in ((b, dim), (b, dim), (b, k, dim)))
+        got = nk.negsamp_grads_kernel(d, w, wn, temperature=t)
+        again = nk.negsamp_grads_kernel(d, w, wn, temperature=t)
+        for g, a in zip(got, again):
+            same(g, a, f"negsamp B={b} dim={dim} K={k}")
+        err = negsamp_close(got, nref.negsamp_grads_ref(d, w, wn, t),
+                            1e-5 * t * t, f"negsamp B={b} dim={dim} K={k} t={t}")
+        log(f"   negsamp ok at B={b} dim={dim} K={k} t={t} (max abs err "
+            f"{err:.3g})")
+
+    def unit(rng, n, dim):
+        x = torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32))
+        return (x / x.norm(dim=1, keepdim=True)).to(dev)
+
+    for n, k, dim in KMEANS_SHAPES:
+        rng = np.random.default_rng(n)
+        x, c = unit(rng, n, dim), unit(rng, k, dim)
+        ids, best = kk.assign_kernel(x, c)
+        ids2, best2 = kk.assign_kernel(x, c)
+        same(ids, ids2, f"kmeans N={n} K={k}")
+        same(best, best2, f"kmeans N={n} K={k}")
+        want_ids, want_best = kref.assign_ref(x, c)
+        if not torch.equal(ids, want_ids):
+            raise AssertionError(f"kmeans N={n} K={k} dim={dim}: "
+                                 f"assignment differs from plain")
+        err = close(best, want_best, f"kmeans N={n} K={k} best score")
+        log(f"   kmeans assign ok at N={n} K={k} dim={dim} (exact ids, "
+            f"scores max abs err {err:.3g})")
+    rng = np.random.default_rng(7)
+    x, c = unit(rng, 4000, 64), unit(rng, 300, 64)
+    c[200:] = c[:100]                      # c[j] copies c[j - 200]
+    ids, _ = kk.assign_kernel(x, c)
+    held = assert_assign_away_from_ties(ids, x, c, "kmeans duplicated")
+    if bool((ids >= 200).any()):
+        raise AssertionError("a duplicated centroid did not give the first "
+                             "index")
+    log(f"   kmeans assign on duplicated centroids: first index always, "
+        f"{held} clear rows equal plain")
+
+
+# ----------------------------------------------------------------------
+# phases 12-14: the offline index build
+# ----------------------------------------------------------------------
+def train(corpus, dev: torch.device, what: str):
+    """``train_pv_dbow`` at the EmApprox PV settings with row 11's counter
+    zeroed first, its callback reading the loss at every step; checks
+    the launches, the loss and the tables.  ``corpus_pairs`` is timed by
+    a call of its own before training.  Returns (model, launches, walls:
+    ``corpus_pairs``, the steps after the first, the whole training)."""
+    from repro_torch.configs.emapprox import CONFIG
+    from repro_torch.core import pv_dbow
+    from repro_torch.kernels.negsamp import kernel as nk
+
+    pv = CONFIG.pv
+    t = time.perf_counter()
+    n_pairs = pv_dbow.corpus_pairs(corpus, pv.noise_power, pv.subsample_t,
+                                   pv.seed).doc_of_token.shape[0]
+    pairs_s = time.perf_counter() - t
+    losses, first_step_at = [], []
+
+    def every_step(step, loss):
+        if step == 0:
+            first_step_at.append(time.perf_counter())
+        losses.append(loss)
+        if step % 100 == 0 or step == pv.steps - 1:
+            log(f"      {what} step {step}: loss {loss:.5f}")
+
+    nk.negsamp_grads_kernel.launches = 0
+    t = time.perf_counter()
+    model = pv_dbow.train_pv_dbow(corpus, pv, device=dev, callback=every_step,
+                                  log_every=1)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = nk.negsamp_grads_kernel.launches
+    loop_s = end - first_step_at[0]
+    walls = dict(corpus_pairs_s=pairs_s, step_loop_s=loop_s,
+                 train_s=end - t)
+    log(f"   {what}: {corpus.n_docs} docs, {n_pairs} pairs after "
+        f"subsampling, {pv.steps} steps of {pv.batch_pairs}; corpus_pairs "
+        f"{pairs_s:.3f} s (own call), training {end - t:.3f} s, steps 1.."
+        f"{pv.steps - 1} {loop_s:.3f} s ({1e3 * loop_s / (pv.steps - 1):.3f}"
+        f" ms a step, the loss read back each step)")
+    if launches != pv.steps or len(losses) != pv.steps:
+        raise AssertionError(f"{what}: negsamp_grads launched {launches} "
+                             f"times, {len(losses)} losses, in {pv.steps} "
+                             f"steps")
+    first, last = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
+    log(f"   {what}: mean loss of the first 100 steps {first:.5f}, of the "
+        f"last 100 {last:.5f}")
+    if not last < first:
+        raise AssertionError(f"{what}: the loss did not fall")
+    for name, tab in (("word", model.word_vecs), ("doc", model.doc_vecs)):
+        norms = torch.linalg.norm(tab, dim=1)
+        if not (bool(torch.isfinite(tab).all())
+                and float((norms - 1.0).abs().max()) <= 1e-4):
+            raise AssertionError(f"{what}: a {name} row is not finite and "
+                                 f"of unit norm")
+    return model, launches, walls
+
+
+def train_phase(dev: torch.device, ctx: dict) -> list:
+    """Phase 12: training on the serving corpus, then row 11 at the step
+    shape."""
+    from repro_torch.configs.emapprox import CONFIG
+    from repro_torch.kernels.negsamp import kernel as nk
+    from repro_torch.kernels.negsamp import ref as nref
+
+    corpus = ctx["corpus"]
+    model, launches, walls = train(corpus, dev, "train")
+    ctx["model"], ctx["train_launches"] = model, launches
+    pv = CONFIG.pv
+    b, k, dim, t = pv.batch_pairs, pv.negatives, pv.dim, pv.temperature
+    gen = torch.Generator(device=dev).manual_seed(11)
+    doc_ids = torch.randint(0, corpus.n_docs, (b,), generator=gen, device=dev)
+    word_ids = torch.randint(0, corpus.vocab_size, (b,), generator=gen,
+                             device=dev)
+    neg_ids = torch.randint(0, corpus.vocab_size, (b, k), generator=gen,
+                            device=dev)
+    d = model.doc_vecs[doc_ids]
+    w = model.word_vecs[word_ids]
+    wn = model.word_vecs[neg_ids]
+    got = nk.negsamp_grads_kernel(d, w, wn, temperature=t)
+    for g, a in zip(got, nk.negsamp_grads_kernel(d, w, wn, temperature=t)):
+        same(g, a, "negsamp at the step shape")
+    # unit rows: every dot is at most 1, so the reference's atol holds
+    err = negsamp_close(got, nref.negsamp_grads_ref(d, w, wn, t), 1e-6,
+                        "negsamp at the step shape")
+    nbytes = 4.0 * (2 * b * dim + b * k * dim) + 4.0 * (b + 2 * b * dim
+                                                         + b * k * dim)
+    # per row: 1 + K dots (2 dim each), g_d (2 dim each), g_w and g_wn
+    # (dim each), and the softplus / sigmoid of each logit (~8 each)
+    ops = b * ((1 + k) * 4.0 * dim + (1 + k) * dim + (1 + k) * 8.0)
+    bound_ms, bound_by = bound(ops, nbytes)
+    kr = dict(
+        name="negsamp_grads", route="cuda",
+        source="src/repro_torch/csrc/negsamp.cu",
+        replaces="src/repro/kernels/negsamp/kernel.py:68",
+        launches=launches, launches_by_path={"train": launches},
+        max_abs_err=err,
+        ms=graph_ms(lambda: nk.negsamp_grads_kernel(d, w, wn, temperature=t)),
+        plain_ms=time_ms(lambda: nref.negsamp_grads_ref(d, w, wn, t)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        dispatch_ms=time_ms(
+            lambda: nk.negsamp_grads_kernel(d, w, wn, temperature=t)))
+    log_kernel(kr, dict(B=b, K=k, dim=dim, t=t, **walls))
+    log(f"   negsamp ms is device time (100 launches in one CUDA graph); "
+        f"one call from the host, dispatch included: "
+        f"{kr['dispatch_ms']:.4f} ms")
+    return [kr]
+
+
+def kmeans_phase(dev: torch.device, ctx: dict) -> list:
+    """Phase 13: spherical k-means of the trained doc vectors into
+    n_shards clusters, unbalanced; then row 12 at that shape."""
+    from repro_torch.core import allocation
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.kernels.kmeans import ref as kref
+    from repro_torch.testing import assert_assign_away_from_ties
+
+    corpus, model = ctx["corpus"], ctx["model"]
+    k = corpus.n_shards
+    cfg = allocation.KMeansConfig(n_clusters=k, balanced=False)
+    stamps = []
+
+    def after_assign(it):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    kk.assign_kernel.launches = 0
+    t = time.perf_counter()
+    assign, centroids = allocation.spherical_kmeans(
+        model.doc_vecs, cfg, device=dev, callback=after_assign)
+    wall = time.perf_counter() - t
+    launches = kk.assign_kernel.launches
+    iterations = len(stamps) - 1
+    steps = np.diff([t] + stamps)
+    log(f"   k-means of {corpus.n_docs} docs into {k} clusters: "
+        f"{iterations} iterations, {launches} assign launches, wall "
+        f"{wall:.3f} s; wall of the first assignment and of each iteration "
+        f"(update + assign) (s): " + ", ".join(f"{x:.4f}" for x in steps))
+    if launches != iterations + 1:
+        raise AssertionError(f"kmeans_assign launched {launches} times in "
+                             f"{iterations} iterations")
+    sizes = np.bincount(assign, minlength=k)
+    log(f"   cluster sizes: max {sizes.max()}, empty {int((sizes == 0).sum())}"
+        f", median {np.median(sizes)}")
+    ctx["kmeans_launches"] = launches
+
+    x = allocation._unit(model.doc_vecs.float())
+    c = torch.as_tensor(centroids, device=dev)
+    ids, best = kk.assign_kernel(x, c)
+    ids2, best2 = kk.assign_kernel(x, c)
+    same(ids, ids2, "kmeans at the allocation shape")
+    same(best, best2, "kmeans at the allocation shape")
+    if not np.array_equal(ids.cpu().numpy(), assign):
+        raise AssertionError("the kernel on the final centroids does not "
+                             "give spherical_kmeans' assignment")
+    held = assert_assign_away_from_ties(ids, x, c, "final assignment")
+    want_ids, want_best = kref.assign_ref(x, c)
+    err = close(best, want_best, "kmeans best scores")
+    log(f"   final assignment equals the plain version on {held} of "
+        f"{x.shape[0]} rows (the rest within 1e-4 of a tie; "
+        f"{int((ids != want_ids).sum())} differ there)")
+
+    n, dim = x.shape
+
+    def library():
+        step = kref.chunk_rows(k)
+        for lo in range(0, n, step):
+            torch.max(torch.matmul(x[lo:lo + step], c.T), dim=1)
+
+    nbytes = 4.0 * (n * dim + k * dim) + 8.0 * n
+    bound_ms, bound_by = bound(2.0 * n * k * dim + 1.0 * n * k, nbytes)
+    kr = dict(
+        name="kmeans_assign", route="cuda",
+        source="src/repro_torch/csrc/kmeans.cu",
+        replaces="src/repro/kernels/kmeans/kernel.py:42",
+        launches=launches, launches_by_path={"kmeans": launches},
+        max_abs_err=err,
+        ms=time_ms(lambda: kk.assign_kernel(x, c), reps=5, warmup=1),
+        plain_ms=time_ms(lambda: kref.assign_ref(x, c), reps=5, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(library, reps=5, warmup=1),
+        library_call="torch.matmul + torch.max(dim=1), per chunk of "
+                     f"{kref.chunk_rows(k)} rows (two calls a chunk)")
+    log_kernel(kr, dict(N=n, K=k, dim=dim, iterations=iterations))
+    log(f"   library (chunked matmul + max): {kr['library_ms']:.4f} ms")
+    return [kr]
+
+
+def build_serve_phase(dev: torch.device, args, kernels: list) -> None:
+    """Phase 14: the JAX package's offline build and one served batch, in
+    the order of examples/serve_queries.py, on a fresh corpus; adds this
+    path's launches to the records of rows 1, 2, 11 and 12."""
+    from repro_torch.configs.emapprox import CONFIG
+    from repro_torch.core.allocation import allocate_corpus
+    from repro_torch.core.index import build_index
+    from repro_torch.core.lsh import LSHConfig
+    from repro_torch.core.queries import QueryBatch
+    from repro_torch.data.corpus import generate_text_corpus
+    from repro_torch.data.store import ShardedCorpus
+    from repro_torch.kernels.asym import kernel as ak
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.runtime.executor import ShardTaskExecutor
+
+    walls = {}
+    t = time.perf_counter()
+    ccfg = dataclasses.replace(CONFIG.corpus, n_docs=args.build_docs,
+                               seed=args.seed)
+    docs, _ = generate_text_corpus(ccfg)
+    corpus = ShardedCorpus.from_documents(docs, ccfg.vocab_size,
+                                          shard_tokens=CONFIG.shard_tokens)
+    del docs
+    walls["corpus_and_shard_s"] = time.perf_counter() - t
+    log(f"   corpus: {corpus.n_docs} docs, {corpus.n_tokens} tokens, "
+        f"{corpus.n_shards} shards")
+    ak.asym_similarity_kernel.launches = 0
+    ak.asym_segment_sum_kernel.launches = 0
+    kk.assign_kernel.launches = 0
+    model, n_train, tw = train(corpus, dev, "build train")
+    walls["train_s"] = tw["train_s"]
+    t = time.perf_counter()
+    pre = build_index(corpus, model, LSHConfig(bits=128), use_lsh=False,
+                      temperature=CONFIG.pv.temperature, device=dev)
+    walls["pre_index_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    allocated = allocate_corpus(corpus, pre.doc_vecs, device=dev)
+    walls["allocate_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    index = build_index(allocated, model, CONFIG.lsh,
+                        temperature=CONFIG.pv.temperature, granularity="doc",
+                        device=dev).attach_corpus(allocated)
+    index._fused_device_arrays()
+    torch.cuda.synchronize()
+    walls["index_s"] = time.perf_counter() - t
+
+    n, k = corpus.n_docs, corpus.n_shards
+    cap = int(np.ceil(n / k * 1.25))
+    lens = np.zeros(n, np.int64)
+    for s in allocated.shards:
+        lens[s.doc_ids] = np.diff(s.offsets)
+    want_lens = np.zeros(n, np.int64)
+    for s in corpus.shards:
+        want_lens[s.doc_ids] = np.diff(s.offsets)
+    ids = np.sort(np.concatenate([s.doc_ids for s in allocated.shards]))
+    per_shard = allocated.shard_doc_counts()
+    if not (allocated.n_shards == k and np.array_equal(ids, np.arange(n))
+            and allocated.n_tokens == corpus.n_tokens
+            and np.array_equal(lens, want_lens)):
+        raise AssertionError("the reallocated corpus lost or changed a "
+                             "document")
+    if per_shard.max() > cap:
+        raise AssertionError(f"a shard holds {per_shard.max()} docs, over "
+                             f"_rebalance's cap {cap}")
+    log(f"   allocated: {allocated.n_shards} shards, every doc and token "
+        f"kept, docs per shard max {per_shard.max()} (cap {cap}), min "
+        f"{per_shard.min()}")
+
+    counts = np.bincount(np.concatenate([s.tokens for s in allocated.shards]),
+                         minlength=ccfg.vocab_size)
+    queries = make_queries(counts, BUILD_BATCH,
+                           np.random.default_rng(args.seed + 7),
+                           n / 3200)
+    seen = []
+    with ShardTaskExecutor(workers=4, adaptive_workers=True) as ex:
+        engine = QueryBatch(allocated, index, executor=ex)
+        record_planning(engine, seen)
+        t = time.perf_counter()
+        res = engine.execute(queries, args.rate,
+                             rng=np.random.default_rng(args.seed + 5))
+        torch.cuda.synchronize()
+        walls["batch_s"] = time.perf_counter() - t
+    launches = {"asym_exp_similarity": ak.asym_similarity_kernel.launches,
+                "asym_exp_segment_sum": ak.asym_segment_sum_kernel.launches,
+                "kmeans_assign": kk.assign_kernel.launches,
+                "negsamp_grads": n_train}
+    log(f"   launches on the offline-build path: {launches}")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"{name} never launched on the offline "
+                                 f"build")
+    qs, rows, plan_s = seen[0]
+    check_rows(rows, plain_rows(index, qs), "offline-build batch")
+    errs = []
+    for q, r in zip(queries, res):
+        if q.kind == "count":
+            truth = float(counts[q.phrase[0]])
+            if not (math.isfinite(r.estimate.value) and r.estimate.value >= 0):
+                raise AssertionError(f"count estimate {r.estimate.value}")
+            errs.append(abs(r.estimate.value - truth) / truth)
+        elif q.kind == "ranked" and not np.all(np.isfinite(r.scores)):
+            raise AssertionError("malformed ranked result")
+    log(f"   batch: {len(queries)} queries at rate {args.rate}, planning "
+        f"{plan_s:.3f} s, shards read {sum(r.shards_read for r in res)}; "
+        f"rows match the plain path")
+    log(f"   count-estimate relative errors ({len(errs)} count queries): "
+        f"median {np.median(errs):.4f}, mean {np.mean(errs):.4f}, max "
+        f"{np.max(errs):.4f}")
+    log("   walls (s): " + ", ".join(f"{k_}={v:.3f}"
+                                     for k_, v in walls.items()))
+    for kr in kernels:
+        if kr["name"] in launches:
+            kr.setdefault("launches_by_path",
+                          {"serving": kr["launches"]})["offline_build"] = \
+                launches[kr["name"]]
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1463,6 +1909,7 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=48)
     p.add_argument("--warm-batch", type=int, default=WARM_BATCH)
     p.add_argument("--rate", type=float, default=0.05)
+    p.add_argument("--build-docs", type=int, default=1 << 16)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1485,6 +1932,7 @@ def main(argv=None) -> int:
     kernel_phase(dev)
     kernel_phase_ranked(dev)
     distance_launches = kernel_phase_hamming(dev)
+    kernel_phase_build(dev)
     log("== small input: CUDA index vs CPU index, asym and sym")
     small_phase(dev, args.seed)
     log(f"== serving: n_docs={args.n_docs}, a batch of {args.batch} then "
@@ -1502,6 +1950,14 @@ def main(argv=None) -> int:
     sym += sym_megascan_phase(dev, ctx)
     log("== sym top-k over every document")
     kernels += sym_topk_phase(dev, ctx, distance_launches) + sym
+    log("== train: PV-DBOW at the EmApprox settings on the serving corpus")
+    kernels += train_phase(dev, ctx)
+    log(f"== k-means: the trained doc vectors into {ctx['corpus'].n_shards} "
+        f"clusters, unbalanced")
+    kernels += kmeans_phase(dev, ctx)
+    log(f"== offline build and serve: {args.build_docs} docs, train, "
+        f"pre-index, allocate, index, a batch of {BUILD_BATCH}")
+    build_serve_phase(dev, args, kernels)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

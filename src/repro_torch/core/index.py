@@ -529,6 +529,13 @@ def shard_vectors(doc_vecs: np.ndarray, corpus: ShardedCorpus) -> np.ndarray:
     return np.stack(out).astype(np.float32)
 
 
+def _host_f32(x) -> np.ndarray:
+    """A float32 numpy copy of an array or of a tensor on any device."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
 def _sign_rows(x: np.ndarray, planes: torch.Tensor) -> np.ndarray:
     """[N, dim] vectors -> [N, bits//32] uint32 packed signatures under
     ``planes``, computed on the planes' device in row chunks."""
@@ -560,16 +567,17 @@ def build_index(
     """Paper Fig. 2 step p2: compose shard vectors, hash everything.
 
     ``model`` is any object with ``word_vecs`` [V, dim] and ``doc_vecs``
-    [n_docs, dim] arrays.  ``center`` subtracts the joint word/doc mean
-    before re-normalizing (the all-but-the-top style post-process the
-    JAX package applies); False is the strictly paper-faithful
-    ablation.  ``planes`` [bits, dim] overrides the hyperplanes drawn
+    [n_docs, dim] arrays or tensors on any device (a trained
+    ``core.pv_dbow.PVDBOWModel`` on the card, the JAX package's model).
+    ``center`` subtracts the joint word/doc mean before re-normalizing
+    (the all-but-the-top style post-process the JAX package applies);
+    False is the strictly paper-faithful ablation.  ``planes`` [bits, dim] overrides the hyperplanes drawn
     from ``lsh_cfg.seed`` (see ``core/lsh.py`` on why the two packages
     draw different planes from one seed)."""
     dev = resolve_device(device)
     lsh_cfg = lsh_cfg or lsh_mod.LSHConfig()
-    word_vecs = np.asarray(model.word_vecs, np.float32)
-    doc_vecs = np.asarray(model.doc_vecs, np.float32)
+    word_vecs = _host_f32(model.word_vecs)
+    doc_vecs = _host_f32(model.doc_vecs)
     mean = None
     if center:
         mean = 0.5 * (word_vecs.mean(axis=0) + doc_vecs.mean(axis=0))

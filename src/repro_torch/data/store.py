@@ -136,6 +136,16 @@ class ShardedCorpus:
             shards.append(DocShard.from_documents(len(shards), cur))
         return ShardedCorpus(shards, vocab_size)
 
+    def reallocate(self, assignment: np.ndarray, n_shards: int) -> "ShardedCorpus":
+        """Rebuild shards from a document→shard assignment vector indexed
+        by global doc_id (paper Sec. IV-D: cluster-based allocation)."""
+        buckets: List[List[Document]] = [[] for _ in range(n_shards)]
+        for shard in self.shards:
+            for doc in shard.iter_documents():
+                buckets[int(assignment[doc.doc_id])].append(doc)
+        shards = [DocShard.from_documents(i, b) for i, b in enumerate(buckets)]
+        return ShardedCorpus(shards, self.vocab_size)
+
     # ------------------------------------------------------------------
     # inspection
     # ------------------------------------------------------------------

@@ -6,6 +6,13 @@ import torch
 
 from repro_torch.core import lsh
 
+# The JAX package's own kernel test shapes (tests/test_kernels.py):
+# row 11 (negsamp) as (B, dim, K, temperature), row 12 (k-means
+# assignment) as (N, K, dim).
+NEGSAMP_SHAPES = [(16, 32, 5, 1.0), (100, 64, 3, 8.0), (256, 16, 1, 4.0),
+                  (7, 128, 8, 8.0)]
+KMEANS_SHAPES = [(10, 3, 8), (513, 16, 32), (1000, 7, 64)]
+
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
@@ -62,3 +69,34 @@ def sign_clear(vecs, planes, margin: float = 1e-4) -> np.ndarray:
              * np.linalg.norm(p, axis=1)[None, :])
     cos = (v @ p.T) / np.maximum(norms, 1e-30)
     return (np.abs(cos) > margin).all(axis=1)
+
+
+def top2_chunked(x: torch.Tensor, c: torch.Tensor
+                 ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Each row's (at most) two largest x . c[k] and their ids, [N, 2],
+    in the plain k-means assignment's row chunks, so the [N, K] scores
+    are never whole."""
+    from repro_torch.kernels.kmeans import ref as kref
+    vals, ids = [], []
+    step = kref.chunk_rows(c.shape[0])
+    for lo in range(0, x.shape[0], step):
+        v, i = torch.topk(x[lo:lo + step] @ c.T, min(2, c.shape[0]), dim=1)
+        vals.append(v)
+        ids.append(i)
+    return torch.cat(vals), torch.cat(ids)
+
+
+def assert_assign_away_from_ties(ids: torch.Tensor, x: torch.Tensor,
+                                 c: torch.Tensor, what: str) -> int:
+    """Assert the assignment ``ids`` [N] of rows ``x`` to centroids ``c``
+    equals the plain argmax at every row whose top two scores differ by
+    more than 1e-4 relative; returns the number of rows held."""
+    v, i = top2_chunked(x, c)
+    if v.shape[1] == 1:
+        if not torch.equal(ids.long(), i[:, 0]):
+            raise AssertionError(f"{what}: assignment differs")
+        return ids.shape[0]
+    got = torch.stack([ids.long(), i[:, 1]], 1)
+    assert_ids_equal_away_from_ties(got, i, v, what)
+    vd = v.double()
+    return int(((vd[:, 0] - vd[:, 1]).abs() > 1e-4 * vd[:, 1].abs()).sum())

@@ -17,7 +17,9 @@ from repro_torch.data.store import ShardedCorpus
 from repro_torch.kernels.asym import kernel as tkernel
 from repro_torch.kernels.asym import ops as tops
 from repro_torch.kernels.asym import ref as tref
-from repro_torch.testing import (assert_ids_equal_away_from_ties,
+from repro_torch.testing import (KMEANS_SHAPES, NEGSAMP_SHAPES,
+                                 assert_assign_away_from_ties,
+                                 assert_ids_equal_away_from_ties,
                                  ragged_segments)
 
 
@@ -325,3 +327,162 @@ def test_cuda_sym_index_scores_through_the_kernels(cuda_device):
     cpu_lsh = lsh.LSHIndex(lsh_idx.packed.cpu(), lsh_idx.planes.cpu(), 64)
     assert torch.equal(sims.cpu(), cpu_lsh.similarities(model.word_vecs[3],
                                                         temperature=8.0))
+
+
+# ----------------------------------------------------------------------
+# the offline index build: rows 11 (negsamp) and 12 (k-means assign)
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,dim,k,temp",
+                         NEGSAMP_SHAPES + [(4096, 64, 5, 8.0)])
+def test_cuda_negsamp_matches_plain(cuda_device, b, dim, k, temp):
+    """Row 11 against its plain version on N(0, 1) inputs: rtol=1e-5,
+    atol=1e-5 * t^2 (the two sum the dot products in other orders;
+    tests/test_torch_negsamp.py derives the bound), bitwise run to run."""
+    from repro_torch.kernels.negsamp import kernel as nker
+    from repro_torch.kernels.negsamp import ops as nops
+    from repro_torch.kernels.negsamp import ref as nref
+    rng = np.random.default_rng(b)
+    d, w, wn = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .to(cuda_device) for s in ((b, dim), (b, dim), (b, k, dim)))
+    n = nker.negsamp_grads_kernel.launches
+    got = nops.negsamp_grads(d, w, wn, temperature=temp)
+    again = nops.negsamp_grads(d, w, wn, temperature=temp)
+    torch.cuda.synchronize()
+    assert nker.negsamp_grads_kernel.launches == n + 2
+    for g, a, r in zip(got, again, nref.negsamp_grads_ref(d, w, wn, temp)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5 * temp * temp)
+
+
+@pytest.mark.cuda
+def test_cuda_negsamp_unit_rows_at_the_step_shape(cuda_device):
+    """Row 11 at the training step's shape (B=4096, K=5, dim=64, t=8) on
+    unit rows, as training gives it: every dot is at most 1, and the
+    reference's rtol=1e-5, atol=1e-6 holds."""
+    from repro_torch.kernels.negsamp import ops as nops
+    from repro_torch.kernels.negsamp import ref as nref
+    rng = np.random.default_rng(11)
+    d = _unit_rows(rng, 4096, 64, cuda_device)
+    w = _unit_rows(rng, 4096, 64, cuda_device)
+    wn = _unit_rows(rng, 4096 * 5, 64, cuda_device).reshape(4096, 5, 64)
+    for g, r in zip(nops.negsamp_grads(d, w, wn, temperature=8.0),
+                    nref.negsamp_grads_ref(d, w, wn, 8.0)):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_negsamp_wrapper_rejects_bad_operands(cuda_device):
+    from repro_torch.kernels.negsamp import kernel as nker
+    from repro_torch.kernels.negsamp import ops as nops
+    d = torch.zeros((4, 16), device=cuda_device)
+    wn = torch.zeros((4, 3, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        nker.negsamp_grads_kernel(d.double(), d.double(), wn.double())
+    with pytest.raises(ValueError):
+        nker.negsamp_grads_kernel(d, d, wn[:, :, :8].contiguous())
+    big = torch.zeros((4, 512), device=cuda_device)
+    with pytest.raises(ValueError):
+        nker.negsamp_grads_kernel(big, big, torch.zeros((4, 1, 512),
+                                                        device=cuda_device))
+    with pytest.raises(ValueError):
+        nops.negsamp_grads(d.cpu(), d, wn)
+
+
+def _unit_rows(rng, n, dim, device):
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,dim", KMEANS_SHAPES + [(5000, 300, 64),
+                                                     (333, 129, 130)])
+def test_cuda_kmeans_assign_matches_plain(cuda_device, n, k, dim):
+    """Row 12 against its plain version: ids exactly away from near-ties
+    (top two scores within 1e-4), best scores rtol=1e-5; bitwise run to
+    run."""
+    from repro_torch.kernels.kmeans import kernel as kker
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.kmeans import ref as kref
+    rng = np.random.default_rng(n + k)
+    x, c = _unit_rows(rng, n, dim, cuda_device), _unit_rows(rng, k, dim,
+                                                            cuda_device)
+    launches = kker.assign_kernel.launches
+    ids, best = kops.assign_with_scores(x, c)
+    ids2, best2 = kops.assign_with_scores(x, c)
+    torch.cuda.synchronize()
+    assert kker.assign_kernel.launches == launches + 2
+    assert torch.equal(ids, ids2) and torch.equal(best, best2)
+    want_ids, want_best = kref.assign_ref(x, c)
+    assert_assign_away_from_ties(ids, x, c, "kmeans assign")
+    assert_assign_away_from_ties(want_ids, x, c, "plain kmeans assign")
+    torch.testing.assert_close(best, want_best, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_ties_take_the_first_index(cuda_device):
+    from repro_torch.kernels.kmeans import ops as kops
+    rng = np.random.default_rng(3)
+    x = _unit_rows(rng, 4000, 64, cuda_device)
+    c = _unit_rows(rng, 300, 64, cuda_device)
+    c[200:] = c[:100]                       # every c[j >= 200] copies c[j - 200]
+    c[150] = c[5]
+    ids = kops.assign(x, c).cpu().numpy()
+    assert not (ids >= 200).any() and not (ids == 150).any()
+    assert (ids == 5).any()
+    dead = torch.full((64, 64), 0.125, device=cuda_device)   # all equal rows
+    ids = kops.assign(x, dead)
+    assert bool((ids == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_train_matches_cpu_on_injected_draws(cuda_device):
+    """A few CUDA training steps (row 11, float-atomic scatter-adds)
+    against the same steps on the CPU from the same initial tables and
+    negatives: atol=1e-4."""
+    from repro_torch.core import pv_dbow
+    from repro_torch.kernels.negsamp import kernel as nker
+    cfg = SyntheticCorpusConfig(n_docs=300, vocab_size=512, n_topics=4, seed=1)
+    docs, _ = generate_text_corpus(cfg)
+    corpus = ShardedCorpus.from_documents(docs, cfg.vocab_size,
+                                          shard_tokens=2048)
+    pcfg = pv_dbow.PVDBOWConfig(dim=16, steps=8, batch_pairs=512, lr=0.01,
+                                temperature=8.0, seed=1)
+    init = pv_dbow.init_model(torch.Generator().manual_seed(0),
+                              cfg.vocab_size, corpus.n_docs, pcfg.dim)
+    rng = np.random.default_rng(0)
+    negs = [rng.integers(0, cfg.vocab_size, (512, pcfg.negatives))
+            for _ in range(pcfg.steps)]
+    n = nker.negsamp_grads_kernel.launches
+    gpu = pv_dbow.train_pv_dbow(corpus, pcfg, device=cuda_device, init=init,
+                                negatives=lambda s: negs[s])
+    assert nker.negsamp_grads_kernel.launches == n + pcfg.steps
+    cpu = pv_dbow.train_pv_dbow(corpus, pcfg, device="cpu", init=init,
+                                negatives=lambda s: negs[s])
+    for g, c in zip(gpu, cpu):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_spherical_kmeans_matches_cpu(cuda_device):
+    """Clustered data with a margin: the CUDA route (row 12, one launch
+    per iteration plus the first) gives the CPU route's assignment."""
+    from repro_torch.core import allocation
+    from repro_torch.kernels.kmeans import kernel as kker
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(6, 16)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, 6, 480)] + 0.08 * rng.normal(
+        size=(480, 16)).astype(np.float32)
+    cfg = allocation.KMeansConfig(n_clusters=6, balanced=False)
+    ids = rng.choice(480, 6, replace=False)
+    n = kker.assign_kernel.launches
+    gpu_a, gpu_c = allocation.spherical_kmeans(x, cfg, device=cuda_device,
+                                               init_ids=ids)
+    assert kker.assign_kernel.launches - n >= 2
+    cpu_a, cpu_c = allocation.spherical_kmeans(x, cfg, device="cpu",
+                                               init_ids=ids)
+    assert np.array_equal(gpu_a, cpu_a)
+    np.testing.assert_allclose(gpu_c, cpu_c, rtol=0, atol=1e-5)

@@ -50,7 +50,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.hamming", "repro_torch.kernels.hamming.ops",
             "repro_torch.kernels.hamming.kernel",
             "repro_torch.kernels.hamming.ref",
-            "repro_torch.runtime.executor"} <= names
+            "repro_torch.runtime.executor",
+            "repro_torch.kernels.negsamp", "repro_torch.kernels.negsamp.ops",
+            "repro_torch.kernels.negsamp.kernel",
+            "repro_torch.kernels.negsamp.ref",
+            "repro_torch.kernels.kmeans", "repro_torch.kernels.kmeans.ops",
+            "repro_torch.kernels.kmeans.kernel",
+            "repro_torch.kernels.kmeans.ref",
+            "repro_torch.core.pv_dbow", "repro_torch.core.allocation",
+            "repro_torch.configs.emapprox"} <= names
 
 
 def _imported_roots(path: pathlib.Path):
