@@ -19,7 +19,9 @@ Phases, each of which raises (exit code not 0) on any failure:
                 atol=1e-5 * t^2 (float32 dot products summed in another
                 order, amplified by the temperature t), the k-means
                 assignment (row 12) exactly, the first index on
-                duplicated centroids.
+                duplicated centroids; the top-k kernels' candidates (rows
+                3, 9/10) also bit for bit equal to the oracle over the
+                similarity kernel's scores, ties included.
   4. small    — a small corpus served through the CUDA index and
                 through the same index on the CPU (plain versions), in
                 asym and in sym mode: probability rows agree
@@ -41,14 +43,18 @@ Phases, each of which raises (exit code not 0) on any failure:
                 read just after; both kernels must have launched.  Every batch's
                 probability rows are held against the plain path on the
                 same vectors (rtol=1e-4).
-  6. timing   — each kernel at the shapes the main path gave it,
-                CUDA-event median of 25, beside its plain version and
-                its bound (the larger of bytes / 3.35 TB/s and fp32
-                operations / 67 TFLOP/s, the H100 SXM peaks; operations
-                are those of the least-work, table-lookup algorithm,
-                see ``least_ops``, plus one compare per candidate for
-                the top-k kernels; the figure with the kernels' own
-                sort networks is printed beside it).  The Hamming
+  6. timing   — each kernel at the shapes the main path gave it:
+                ``ms``, the CUDA-event median of 25 calls from the host
+                (dispatch included), and ``device_ms``, its device time
+                (up to 100 launches replayed from one CUDA graph), beside
+                its plain version and its bound (the larger of bytes /
+                3.35 TB/s and fp32 operations / 67 TFLOP/s, the H100 SXM
+                peaks; operations are those of the least-work,
+                table-lookup algorithm, see ``least_ops``, plus one
+                compare per candidate for the top-k kernels; the figure
+                with the top-k kernels' own selection work, counted on
+                this run's scores by ``selection_work``, is printed
+                beside it).  The Hamming
                 kernels' bound takes their popcounts over the card's
                 popcount rate instead (``popc_rate``: SMs x 16 per
                 clock, compute capability 9.0, x the max SM clock).
@@ -60,12 +66,17 @@ Phases, each of which raises (exit code not 0) on any failure:
                 ranked one (k=10): one group launch per call, held
                 against the plain versions on the same payload, bitwise
                 equal to the per-shard route on a seeded sample of 1024
-                shards and to the streamed schedule; both kernels timed,
+                shards and to the streamed schedule; the top-k
+                kernel's candidates over the full fleet equal, bit for
+                bit, the oracle over row 1's scores of every payload row
+                (``testing.topk_candidates_from_scores``); both kernels timed,
                 and both routes on the sample, 20 host-clock runs each,
                 alternating (median, min, max).
   8. top-k    — ``topk_doc_similarities_batch`` of the serving phase's
                 48 queries, k=10 over every doc, fused (the kernel)
-                against unfused; the kernel timed.
+                against unfused; the kernel's candidates equal, bit for
+                bit, the oracle over row 1's [48, n_docs] scores; the
+                kernel timed.
   9. sym serving — the paper's two-sided Hamming mode on the same
                 corpus and signatures (``lsh_mode="sym"``): one batch
                 of the serving phase's first 48 queries through
@@ -247,6 +258,16 @@ def graph_ms(fn, launches: int = 100, reps: int = 25) -> float:
     return time_ms(graph.replay, reps=reps, warmup=1) / launches
 
 
+def timed(fn, reps: int = 25, warmup: int = 3) -> dict:
+    """A kernel record's two times of one call of ``fn``: ``ms``, from
+    the host (``time_ms``, its dispatch included), and ``device_ms``,
+    its device time (``graph_ms``) over as many launches in the graph as
+    take about 20 ms (1 to 100)."""
+    ms = time_ms(fn, reps=reps, warmup=warmup)
+    launches = max(1, min(100, int(20.0 / max(ms, 1e-3))))
+    return dict(ms=ms, device_ms=graph_ms(fn, launches=launches, reps=reps))
+
+
 def least_ops(b: int, m: int, bits: int, dim: int, per_row: int, *,
               bit_serial: bool = False) -> float:
     """fp32 operations of the least-work way to compute the asym scores
@@ -263,10 +284,38 @@ def least_ops(b: int, m: int, bits: int, dim: int, per_row: int, *,
             + b * m * (bits / 8 + per_row))
 
 
-def sort_ces(n: int) -> float:
-    """Compare-exchanges of a bitonic sort of n (a power of two)."""
-    lg = int(n).bit_length() - 1
-    return n / 2 * lg * (lg + 1) / 2
+def selection_work(scores: torch.Tensor, tm: int, k: int,
+                   valid: "torch.Tensor | None" = None
+                   ) -> "tuple[int, int, int]":
+    """(ballots, sorts, insertions) of the top-k kernels' warp selection
+    (``asym_tile.cuh``, ``warp_topk``) on these [B, M] scores, per query
+    and tile of ``tm`` rows: one ballot for each 32-row chunk that holds
+    a valid row, one 32-lane sort of the first such chunk, and one
+    insertion for each valid row of a later chunk that beats the k-th
+    best (value, row) of the valid rows before its chunk (a later row
+    loses a tie)."""
+    b, m = scores.shape
+    j = -(-m // tm)
+    real = torch.zeros(j * tm, dtype=torch.bool, device=scores.device)
+    real[:m] = True if valid is None else valid
+    v = scores.new_full((b, j * tm), -math.inf)
+    v[:, :m] = scores
+    v = torch.where(real, v, -math.inf).view(b, j, tm)
+    real = real.view(j, tm)
+    ballots = sorts = insertions = 0
+    for lo in range(0, tm, 32):
+        hi = min(tm, lo + 32)
+        here = real[:, lo:hi].any(dim=1)
+        seen = real[:, :lo].any(dim=1)
+        ballots += b * int(here.sum())
+        sorts += b * int((here & ~seen).sum())
+        if lo >= k:
+            kth = torch.topk(v[:, :, :lo], k, dim=-1).values[..., -1:]
+        else:
+            kth = torch.full_like(v[:, :, :1], -math.inf)
+        insertions += int(((v[:, :, lo:hi] > kth) & real[:, lo:hi]
+                           & seen[:, None]).sum())
+    return ballots, sorts, insertions
 
 
 def popc_rate() -> "tuple[float, str]":
@@ -362,8 +411,15 @@ def kernel_phase_ranked(dev: torch.device) -> None:
     from repro_torch.kernels.megascan import kernel as mk
     from repro_torch.kernels.megascan import ops as mops
     from repro_torch.kernels.megascan import ref as mref
-    from repro_torch.testing import assert_ids_equal_away_from_ties
-    from repro_torch.testing import ragged_segments
+    from repro_torch.testing import (assert_ids_equal_away_from_ties,
+                                     ragged_segments,
+                                     topk_candidates_from_scores)
+
+    def exact(got, scores, kk, tm, valid, what):
+        want = topk_candidates_from_scores(scores, kk, tm, valid)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{what}: candidates differ from the oracle "
+                                 f"over the similarity kernel's scores")
 
     for b, m, kk, dim, bits, beta, dup in TOPK_SHAPES:
         rng = np.random.default_rng(b * 1000 + m + kk)
@@ -384,6 +440,9 @@ def kernel_phase_ranked(dev: torch.device) -> None:
         rv, ri = ref.asym_topk_candidates_ref(qn, db, planes, bits, kc,
                                               k.topk_tile(kc), beta)
         close(cv, rv, f"top-k candidates {b}x{m} k={kk}")
+        exact((cv, ci), k.asym_similarity_kernel(qn, planes, db, bits,
+                                                 temperature=beta),
+              kc, k.topk_tile(kc), None, f"top-k candidates {b}x{m} k={kk}")
         assert_ids_equal_away_from_ties(ci, ri, rv,
                                         f"top-k candidates {b}x{m} k={kk}")
         idx, vals = ops.asym_exp_topk(q, db, planes, bits, kk,
@@ -395,7 +454,8 @@ def kernel_phase_ranked(dev: torch.device) -> None:
         ties = ties_by_index(vals, idx, vals.shape[1], f"top-k {b}x{m}")
         if dup and ties == 0:
             raise AssertionError("duplicated rows gave no exact tie")
-        log(f"   top-k ok at B={b} M={m} k={kk} dim={dim} bits={bits}"
+        log(f"   top-k ok at B={b} M={m} k={kk} dim={dim} bits={bits}, "
+            f"{k.topk_selection(kc)} selection, candidates == oracle"
             + (f" ({ties} exact ties, lowest index first)" if dup else ""))
 
     for counts, tm, kk, dup in MEGA_SHAPES:
@@ -432,6 +492,9 @@ def kernel_phase_ranked(dev: torch.device) -> None:
         rv, rp = mref.asym_megascan_topk_ref(qn, pay.sig, slots, planes, 64, kk,
                                              pay.n_slots, tm, 4.0)
         close(cv, rv, what + " top-k")
+        exact((cv, cp), k.asym_similarity_kernel(qn, planes, pay.sig, 64,
+                                                 temperature=4.0),
+              kk, tm, slots < pay.n_slots, what + " top-k")
         for j in range(pay.n_blocks):
             sl = slice(j * kk, (j + 1) * kk)
             assert_ids_equal_away_from_ties(cp[:, sl], rp[:, sl], rv[:, sl],
@@ -451,7 +514,8 @@ def kernel_phase_ranked(dev: torch.device) -> None:
                     and np.array_equal(ids[:, s], i1[:, 0])
                     and np.array_equal(vals[:, s], v1[:, 0])):
                 raise AssertionError(f"{what}: group != single shard {s}")
-        log(f"   megascan ok at {counts} tm={tm} k={kk}"
+        log(f"   megascan ok at {counts} tm={tm} k={kk}, "
+            f"{k.topk_selection(kk)} selection, top-k candidates == oracle"
             + (f" ({ties} exact ties, lowest position first)" if dup else ""))
 
 
@@ -872,7 +936,7 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
         source="src/repro_torch/csrc/asym.cu",
         replaces="src/repro/kernels/asym/kernel.py:191",
         launches=launches["asym_exp_segment_sum"], max_abs_err=err,
-        ms=time_ms(lambda: k.asym_segment_sum_kernel(
+        **timed(lambda: k.asym_segment_sum_kernel(
             qn, planes, sig, offs, bits, temperature=beta)),
         plain_ms=time_ms(lambda: ref.asym_exp_segment_sum_ref(
             vecs, sig, planes, bits, seg, n_shards, beta)),
@@ -895,7 +959,7 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
         source="src/repro_torch/csrc/asym.cu",
         replaces="src/repro/kernels/asym/kernel.py:151",
         launches=launches["asym_exp_similarity"], max_abs_err=err,
-        ms=time_ms(lambda: k.asym_similarity_kernel(
+        **timed(lambda: k.asym_similarity_kernel(
             wq, planes, shard_sig, bits, temperature=beta)),
         plain_ms=time_ms(lambda: ref.asym_exp_similarity_ref(
             wvecs, shard_sig, planes, bits, beta)),
@@ -908,7 +972,8 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
 
 
 def log_kernel(kr: dict, shape: dict) -> None:
-    log(f"   {kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} "
+    log(f"   {kr['name']}: {kr['ms']:.4f} ms, device {kr['device_ms']:.4f} "
+        f"ms (plain {kr['plain_ms']:.4f} "
         f"ms, bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}, max abs "
         f"err {kr['max_abs_err']:.3g}, "
         f"{kr.get('launches_by_path', kr['launches'])} launches) at {shape}")
@@ -979,13 +1044,15 @@ def results_equal(a: list, b: list, what: str) -> int:
 
 
 def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
+    from repro_torch.kernels.asym import kernel as ak
     from repro_torch.kernels.asym import ops
     from repro_torch.kernels.megascan import MegascanSpec
     from repro_torch.kernels.megascan import kernel as mk
     from repro_torch.kernels.megascan import ops as mops
     from repro_torch.kernels.megascan import ref as mref
     from repro_torch.runtime.executor import ShardTaskExecutor
-    from repro_torch.testing import assert_ids_equal_away_from_ties
+    from repro_torch.testing import (assert_ids_equal_away_from_ties,
+                                     topk_candidates_from_scores)
 
     corpus, index, counts = ctx["corpus"], ctx["index"], ctx["counts"]
     n_shards = corpus.n_shards
@@ -1122,7 +1189,7 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
         source="src/repro_torch/csrc/megascan.cu",
         replaces="src/repro/kernels/megascan/kernel.py:182",
         launches=launches["megascan_segsum"], max_abs_err=err,
-        ms=time_ms(lambda: mk.asym_megascan_segsum_kernel(
+        **timed(lambda: mk.asym_megascan_segsum_kernel(
             qn, planes, pay.sig, pay.row_start, pay.row_count, bits,
             temperature=beta)),
         plain_ms=time_ms(lambda: mref.asym_megascan_segsum_ref(
@@ -1139,6 +1206,21 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
     same(cp, cp2, "megascan top-k, full fleet")
     err = finite_err(cv, pv)
     close(cv, pv, "megascan top-k candidates, full fleet")
+    # exact: the oracle over row 1's scores of every payload row
+    scores = ak.asym_similarity_kernel(qn, planes, pay.sig, bits,
+                                       temperature=beta)
+    valid = slots < n_slots
+    ev, ep = topk_candidates_from_scores(scores, 10, pay.tm, valid)
+    if not (torch.equal(cv, ev) and torch.equal(cp, ep)):
+        raise AssertionError("megascan top-k, full fleet: candidates differ "
+                             "from the oracle over the similarity kernel's "
+                             "scores")
+    ties = ties_by_index(cv, cp, 10, "megascan top-k, full fleet")
+    log(f"   megascan top-k candidates == the oracle over row 1's "
+        f"{list(scores.shape)} scores, values and positions bit for bit "
+        f"({ties} exact ties, lowest position first)")
+    ballots, sorts, inserts = selection_work(scores, pay.tm, 10, valid)
+    del scores, valid, ev, ep
     # the function reads the real rows' signatures and the per-slot
     # ranges (not the padded payload's row -> slot map) and writes the
     # candidates; a top-k selection takes about one compare per
@@ -1147,18 +1229,23 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
                     + 2 * b * pay.n_blocks * 10)
     bound_ms, bound_by = bound(least_ops(b, real, bits, dim, 3) + b * real,
                                nbytes)
-    sort_ms, _ = bound(least_ops(b, real, bits, dim, 3)
-                       + b * pay.n_blocks * sort_ces(pay.tm),
-                       nbytes + 4.0 * pay.n_rows)
-    log(f"   megascan top-k bound with this kernel's {pay.tm}-wide sort "
-        f"network and row -> slot map: {sort_ms} ms")
+    sel_ms, _ = bound(least_ops(b, real, bits, dim, 3)
+                      + 32.0 * (ballots + 15 * sorts + inserts),
+                      nbytes + 4.0 * pay.n_rows)
+    selection = ak.topk_selection(10)
+    log(f"   megascan top-k selection ({selection}): {ballots} chunk "
+        f"ballots, {sorts} warp sorts and {inserts} insertions over {b} x "
+        f"{pay.n_blocks} (query, block) pairs ({inserts / (b * pay.n_blocks)}"
+        f" insertions a pair); bound with them (32 lanes a ballot or an "
+        f"insertion, 15 x 32 a sort) and the row -> slot map: {sel_ms} ms")
     kernels.append(dict(
         name="asym_megascan_topk", route="cuda",
         source="src/repro_torch/csrc/megascan.cu",
         replaces="src/repro/kernels/megascan/kernel.py:363",
         also_replaces="src/repro/kernels/megascan/kernel.py:411",
+        selection=selection,
         launches=launches["megascan_topk"], max_abs_err=err,
-        ms=time_ms(lambda: mk.asym_megascan_topk_kernel(
+        **timed(lambda: mk.asym_megascan_topk_kernel(
             qn, planes, pay.sig, slots, bits, 10, n_slots, pay.tm,
             temperature=beta)),
         plain_ms=time_ms(lambda: mref.asym_megascan_topk_ref(
@@ -1265,7 +1352,7 @@ def sym_serve_phase(dev: torch.device, args, ctx: dict,
         source="src/repro_torch/csrc/hamming.cu",
         replaces="src/repro/kernels/hamming/kernel.py:160",
         launches=launches["hamming_segment_similarity"], max_abs_err=err,
-        ms=time_ms(lambda: hk.hamming_segment_similarity_kernel(
+        **timed(lambda: hk.hamming_segment_similarity_kernel(
             qsig, sig, offs, bits, temperature=beta)),
         plain_ms=time_ms(lambda: href.hamming_segment_similarity_csr_ref(
             qsig, sig, bits, offs, beta)),
@@ -1362,7 +1449,7 @@ def sym_megascan_phase(dev: torch.device, ctx: dict) -> list:
         source="src/repro_torch/csrc/megascan.cu",
         replaces="src/repro/kernels/megascan/kernel.py:222",
         launches=launches, max_abs_err=err,
-        ms=time_ms(lambda: mk.hamming_megascan_segsum_kernel(
+        **timed(lambda: mk.hamming_megascan_segsum_kernel(
             qsig, pay.sig, pay.row_start, pay.row_count, bits,
             temperature=beta)),
         plain_ms=time_ms(lambda: mref.hamming_megascan_segsum_ref(
@@ -1426,7 +1513,7 @@ def sym_topk_phase(dev: torch.device, ctx: dict,
             "sym_shard_planning": ctx["sym_shard_launches"],
             "sym_topk": launches},
         max_abs_err=sim_err,
-        ms=time_ms(lambda: hk.hamming_similarity_kernel(
+        **timed(lambda: hk.hamming_similarity_kernel(
             qsig, db, bits, temperature=beta)),
         plain_ms=time_ms(lambda: href.hamming_similarity_ref(
             qsig, db, bits, beta)),
@@ -1445,7 +1532,7 @@ def sym_topk_phase(dev: torch.device, ctx: dict,
         source="src/repro_torch/csrc/hamming.cu",
         replaces="src/repro/kernels/hamming/kernel.py:89",
         launches=distance_launches, max_abs_err=dist_err,
-        ms=time_ms(lambda: hk.hamming_distance_kernel(qsig, db)),
+        **timed(lambda: hk.hamming_distance_kernel(qsig, db)),
         plain_ms=time_ms(lambda: href.hamming_distance_ref(qsig, db)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     log_kernel(kernels[0], dict(B=b, M=m, W=w, bits=bits))
@@ -1458,7 +1545,8 @@ def sym_topk_phase(dev: torch.device, ctx: dict,
 def topk_phase(dev: torch.device, ctx: dict) -> list:
     from repro_torch.kernels.asym import kernel as k
     from repro_torch.kernels.asym import ops, ref
-    from repro_torch.testing import assert_ids_equal_away_from_ties
+    from repro_torch.testing import (assert_ids_equal_away_from_ties,
+                                     topk_candidates_from_scores)
 
     index, batch = ctx["index"], ctx["batch"]
     words = [sorted(q.expr.words()) if q.kind == "bool" else q.word_ids()
@@ -1495,20 +1583,37 @@ def topk_phase(dev: torch.device, ctx: dict) -> list:
     close(cv, rv, "top-k candidates at the serving shapes")
     assert_ids_equal_away_from_ties(ci, ri, rv,
                                     "top-k candidates at the serving shapes")
+    # exact: the oracle over row 1's scores of every doc
+    scores = k.asym_similarity_kernel(qn, planes, db, bits, temperature=beta)
+    ev, ei = topk_candidates_from_scores(scores, 10, tm)
+    if not (torch.equal(cv, ev) and torch.equal(ci, ei)):
+        raise AssertionError("top-k candidates at the serving shapes differ "
+                             "from the oracle over the similarity kernel's "
+                             "scores")
+    ties = ties_by_index(cv, ci, 10, "top-k candidates at the serving shapes")
+    log(f"   top-k candidates == the oracle over row 1's "
+        f"{list(scores.shape)} scores, values and ids bit for bit ({ties} "
+        f"exact ties, lowest index first)")
+    ballots, sorts, inserts = selection_work(scores, tm, 10)
+    del scores, ev, ei
     n_tiles = -(-m // tm)
     # a per-tile top-k selection takes about one compare per candidate
     nbytes = 4.0 * (m * w + b * dim + bits * dim + 2 * b * n_tiles * 10)
     bound_ms, bound_by = bound(least_ops(b, m, bits, dim, 3) + b * m, nbytes)
-    sort_ms, _ = bound(least_ops(b, m, bits, dim, 3)
-                       + b * n_tiles * sort_ces(tm), nbytes)
-    log(f"   top-k bound with this kernel's {tm}-wide sort network: "
-        f"{sort_ms} ms")
+    sel_ms, _ = bound(least_ops(b, m, bits, dim, 3)
+                      + 32.0 * (ballots + 15 * sorts + inserts), nbytes)
+    selection = k.topk_selection(10)
+    log(f"   top-k selection ({selection}): {ballots} chunk ballots, {sorts} "
+        f"warp sorts and {inserts} insertions over {b} x {n_tiles} (query, "
+        f"tile) pairs ({inserts / (b * n_tiles)} insertions a pair); bound "
+        f"with them (32 lanes a ballot or an insertion, 15 x 32 a sort): "
+        f"{sel_ms} ms")
     kr = dict(
         name="asym_exp_topk", route="cuda",
         source="src/repro_torch/csrc/asym.cu",
         replaces="src/repro/kernels/asym/kernel.py:240",
-        launches=launches, max_abs_err=err,
-        ms=time_ms(lambda: k.asym_topk_kernel(qn, planes, db, bits, 10,
+        selection=selection, launches=launches, max_abs_err=err,
+        **timed(lambda: k.asym_topk_kernel(qn, planes, db, bits, 10,
                                               temperature=beta)),
         plain_ms=time_ms(lambda: ref.asym_topk_candidates_ref(
             qn, db, planes, bits, 10, tm, beta)),
@@ -1685,13 +1790,13 @@ def train_phase(dev: torch.device, ctx: dict) -> list:
     # (dim each), and the softplus / sigmoid of each logit (~8 each)
     ops = b * ((1 + k) * 4.0 * dim + (1 + k) * dim + (1 + k) * 8.0)
     bound_ms, bound_by = bound(ops, nbytes)
+    device = graph_ms(lambda: nk.negsamp_grads_kernel(d, w, wn, temperature=t))
     kr = dict(
         name="negsamp_grads", route="cuda",
         source="src/repro_torch/csrc/negsamp.cu",
         replaces="src/repro/kernels/negsamp/kernel.py:68",
         launches=launches, launches_by_path={"train": launches},
-        max_abs_err=err,
-        ms=graph_ms(lambda: nk.negsamp_grads_kernel(d, w, wn, temperature=t)),
+        max_abs_err=err, ms=device, device_ms=device,
         plain_ms=time_ms(lambda: nref.negsamp_grads_ref(d, w, wn, t)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         dispatch_ms=time_ms(
@@ -1771,7 +1876,7 @@ def kmeans_phase(dev: torch.device, ctx: dict) -> list:
         replaces="src/repro/kernels/kmeans/kernel.py:42",
         launches=launches, launches_by_path={"kmeans": launches},
         max_abs_err=err,
-        ms=time_ms(lambda: kk.assign_kernel(x, c), reps=5, warmup=1),
+        **timed(lambda: kk.assign_kernel(x, c), reps=5, warmup=1),
         plain_ms=time_ms(lambda: kref.assign_ref(x, c), reps=5, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by,
         library_ms=time_ms(library, reps=5, warmup=1),

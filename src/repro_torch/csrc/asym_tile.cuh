@@ -9,10 +9,22 @@
 //     then a fixed xor-butterfly adds the 32 partials, so every lane
 //     ends with the same totals and a slot's sum depends only on its
 //     own rows, taken in a fixed order (no float atomics);
-//   * score_tile / bitonic_sort_desc: the top-k kernels' tile of TM
-//     rows scored into shared memory (masked rows -inf), then ordered
-//     by value descending, ties by ascending position — the order of
-//     jax.lax.top_k and of the JAX package's bitonic_sort_desc.
+//   * warp_topk: the top-k kernels' selection for K <= WARP_K: one warp
+//     scores a tile's real rows, 32 at a time, and keeps each query's
+//     K best (value, row) in registers, lane r holding rank r; a
+//     ballot finds the rows that beat the current K-th, and only those
+//     are inserted, by a shuffle shift.  Order: value descending, ties
+//     by ascending row — the order of jax.lax.top_k and of the JAX
+//     package's bitonic_sort_desc;
+//   * score_tile / bitonic_sort_desc: the selection for K > WARP_K: the
+//     block scores the first n rows of a tile into shared memory
+//     (masked rows -inf) and sorts them there, n the next power of two
+//     above both K and the tile's last real row.
+//
+// Both give, per tile and query, the first K entries of a stable
+// descending sort of the tile's values with masked rows at -inf: real
+// rows by (value desc, row asc), then, where fewer than K rows are
+// real, the lowest masked rows in ascending order.
 //
 // The sum adds with __fadd_rn, which the compiler never contracts
 // into an FMA, so every kernel that inlines slot_sum rounds each add
@@ -117,6 +129,191 @@ __device__ __forceinline__ void slot_sum(const uint32_t* __restrict__ db,
   }
 }
 
+constexpr int WARP_K = 32;                  // the most K warp_topk keeps
+constexpr int NO_ROW = 0x7fffffff;          // an empty rank's row
+constexpr unsigned ALL_LANES = 0xffffffffu;
+
+// (va, ia) ranks before (vb, ib): value descending, ties by ascending row
+__device__ __forceinline__ bool ranks_before(float va, int ia, float vb,
+                                             int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// Bitonic sort of one (value, row) pair per lane across the warp, value
+// descending, ties by ascending row: lane r ends with rank r.  15
+// compare-exchange stages of two shuffles each, no shared memory.
+__device__ __forceinline__ void warp_sort_desc(float& v, int& i) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(ALL_LANES, v, stride);
+      const int oi = __shfl_xor_sync(ALL_LANES, i, stride);
+      // a descending run's lower lane keeps the pair that ranks first
+      const bool desc = (lane & size) == 0;
+      const bool lower = (lane & stride) == 0;
+      if (ranks_before(ov, oi, v, i) == (lower == desc)) {
+        v = ov;
+        i = oi;
+      }
+    }
+  }
+}
+
+// One warp's top-K (K <= WARP_K) of the tile of rows [first, first +
+// tm) for the block's TB queries: on return lane r < K holds rank r,
+// (tv[b], ti[b]) for query b.  The whole warp must call it with the
+// same arguments.  Rows that are not valid(row) are neither read nor
+// scored; a 32-row chunk with no valid row costs one ballot.  Lane l
+// scores row c + l of chunk c.  The first chunk that holds a valid row
+// is sorted across the warp (warp_sort_desc), which fills the ranks.
+// In each later chunk one ballot per query marks the rows that beat
+// the running K-th, and each of those, lowest lane first, is
+// broadcast, ranked against the list by one more ballot and shifted
+// in: about K * (1/1 + ... + 1/(chunks - 1)) insertions per query for
+// rows in random order, whatever tm is, and none where a tile's valid
+// rows fit in one chunk.  Where fewer than K rows are valid, the
+// remaining ranks take the lowest masked rows in ascending order at
+// -inf.
+template <typename Valid>
+__device__ inline void warp_topk(const uint32_t* __restrict__ db, int W,
+                                 int nwords,
+                                 const float4* __restrict__ proj4,
+                                 float scale, float temperature, int first,
+                                 int tm, int K, Valid valid,
+                                 float (&tv)[TB], int (&ti)[TB]) {
+  const int lane = threadIdx.x % 32;
+  const unsigned ranked = K >= 32 ? ALL_LANES : (1u << K) - 1u;
+#pragma unroll
+  for (int b = 0; b < TB; ++b) {
+    tv[b] = -CUDART_INF_F;
+    ti[b] = NO_ROW;
+  }
+  int n_real = 0;                            // valid rows seen
+  for (int c = 0; c < tm; c += 32) {
+    const int row = first + c + lane;
+    const bool real = c + lane < tm && valid(row);
+    const unsigned real_mask = __ballot_sync(ALL_LANES, real);
+    if (real_mask == 0u) continue;           // uniform across the warp
+    const bool first_chunk = n_real == 0;
+    n_real += __popc(real_mask);
+    float cv[TB];
+    if (real) {
+      float dot[TB];
+      doc_dots(db + (size_t)row * W, nwords, proj4, dot);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) cv[b] = exp_sim(dot[b], scale, temperature);
+    } else {
+#pragma unroll
+      for (int b = 0; b < TB; ++b) cv[b] = -CUDART_INF_F;
+    }
+    if (first_chunk) {                       // uniform across the warp
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        tv[b] = cv[b];
+        ti[b] = real ? row : NO_ROW;
+        warp_sort_desc(tv[b], ti[b]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float kth_v = __shfl_sync(ALL_LANES, tv[b], K - 1);
+      const int kth_i = __shfl_sync(ALL_LANES, ti[b], K - 1);
+      unsigned todo = __ballot_sync(
+          ALL_LANES, real && ranks_before(cv[b], row, kth_v, kth_i));
+      while (todo != 0u) {                   // uniform across the warp
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const float v = __shfl_sync(ALL_LANES, cv[b], src);
+        const int i = __shfl_sync(ALL_LANES, row, src);
+        const int p = __popc(
+            __ballot_sync(ALL_LANES, ranks_before(tv[b], ti[b], v, i)) & ranked);
+        const float up_v = __shfl_up_sync(ALL_LANES, tv[b], 1);
+        const int up_i = __shfl_up_sync(ALL_LANES, ti[b], 1);
+        if (p < K) {                         // enters at rank p
+          if (lane == p) {
+            tv[b] = v;
+            ti[b] = i;
+          } else if (lane > p) {
+            tv[b] = up_v;
+            ti[b] = up_i;
+          }
+        }
+      }
+    }
+  }
+  if (n_real < K) {                          // uniform across the warp
+    int filled = n_real;
+    for (int c = 0; c < tm && filled < K; c += 32) {
+      unsigned masked =
+          __ballot_sync(ALL_LANES, c + lane < tm && !valid(first + c + lane));
+      while (masked != 0u && filled < K) {
+        const int p = __ffs(masked) - 1;
+        masked &= masked - 1u;
+        if (lane == filled) {
+#pragma unroll
+          for (int b = 0; b < TB; ++b) {
+            tv[b] = -CUDART_INF_F;
+            ti[b] = first + c + p;
+          }
+        }
+        ++filled;
+      }
+    }
+  }
+}
+
+// Lane r < K of the calling warp writes rank r of each of the block's
+// nb queries: out[(q0 + b) * row_len + col0 + r].
+__device__ __forceinline__ void write_ranks(float* __restrict__ vals_out,
+                                            int* __restrict__ idx_out,
+                                            int q0, int nb, size_t row_len,
+                                            size_t col0, int K,
+                                            const float (&tv)[TB],
+                                            const int (&ti)[TB]) {
+  const int lane = threadIdx.x % 32;
+  if (lane >= K) return;
+#pragma unroll
+  for (int b = 0; b < TB; ++b) {
+    if (b < nb) {
+      const size_t o = (size_t)(q0 + b) * row_len + col0 + lane;
+      vals_out[o] = tv[b];
+      idx_out[o] = ti[b];
+    }
+  }
+}
+
+// 1 + the offset of the last valid row of [first, first + tm) (0 when
+// none is), the same on every thread of the block; warp_max holds
+// WARPS ints of shared memory.
+template <typename Valid>
+__device__ inline int tile_extent(int first, int tm, Valid valid,
+                                  int* warp_max) {
+  int last = 0;
+  for (int r = threadIdx.x; r < tm; r += blockDim.x)
+    if (valid(first + r)) last = r + 1;
+  last = __reduce_max_sync(ALL_LANES, last);
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = last;
+  __syncthreads();
+  int ext = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) ext = max(ext, warp_max[w]);
+  __syncthreads();                           // the next tile rewrites it
+  return ext;
+}
+
+// Rows the sort selection orders: the next power of two at least K and
+// at least the tile's extent (so every valid row, and the lowest masked
+// rows, are in it).
+__device__ __forceinline__ int sort_width(int extent, int K) {
+  const int need = max(extent, K);
+  int n = 1;
+  while (n < need) n <<= 1;
+  return n;
+}
+
 // vals[b * tm + r] = exp_sim of row first + r for query b where
 // valid(row), -inf elsewhere (the row is then never read);
 // idx[b * tm + r] = first + r.
@@ -177,11 +374,19 @@ __device__ inline void bitonic_sort_desc(float* v, int* ix, int rows,
 }
 
 // Dynamic shared memory of a block: the projection [bits][TB], the
-// query tile [TB][dim] and, for the top-k kernels, [TB][tm] values
-// and indices.
+// query tile [TB][dim] and, for the top-k kernels' sort selection,
+// [TB][tm] values and indices.
 inline size_t smem_bytes(int bits, int dim, int tm) {
   return ((size_t)bits * TB + (size_t)TB * dim) * sizeof(float) +
          (size_t)TB * tm * (sizeof(float) + sizeof(int));
+}
+
+// ... of a top-k block: the warp selection (K <= WARP_K) keeps its
+// ranks in registers; the sort selection adds the [TB][tm] tile and
+// WARPS ints for tile_extent.
+inline size_t topk_smem_bytes(int bits, int dim, int tm, int K) {
+  if (K <= WARP_K) return smem_bytes(bits, dim, 0);
+  return smem_bytes(bits, dim, tm) + WARPS * sizeof(int);
 }
 
 // The most dynamic shared memory one block may ask for on this device.

@@ -24,9 +24,13 @@
 //
 // What bounds them on the card: in asym mode, as for asym.cu, the fp32
 // sign product (2 * bits operations per query and real row) — and, in
-// the top-k, its sort network (per block and query, TM/2 * log2(TM) *
-// (log2(TM) + 1) / 2 compare-exchanges in shared memory, whatever the
-// number of real rows).  In sym mode, as for hamming.cu, the bits/32
+// the top-k, its selection: for K <= 32 a 15-stage sort across the
+// warp of the first 32-row chunk that holds a real row, then one ballot
+// per (query, later such chunk) and one insertion per later real row
+// that beats the running K-th (none at serving scale, where a block
+// holds ≈ 26 real rows); for K > 32 a bitonic sort of the next power of
+// two above K and the block's last real row.  In sym mode, as for
+// hamming.cu, the bits/32
 // popcounts per query and real row, issued at 16 per clock per SM.
 // Bytes are the real rows' signatures, bits/8 per row, read once per
 // query tile.
@@ -43,11 +47,19 @@
 //     slot map (the streamed schedule), and run to run.  Empty slots
 //     give exact zeros;
 //   * the top-k kernel reads a row's signature only where its slot is
-//     real, and masks the rest to -inf before the sort;
+//     real.  For K <= 32 (the served k = 10) a warp owns a payload
+//     block: lane l tests rows l, l+32, ... against the slot map, a
+//     32-row chunk with no real row costs one ballot, and the real
+//     rows' values go straight into each query's running top-K in
+//     registers (asym_tile::warp_topk: the first such chunk sorted
+//     across the warp, later real rows inserted), so the padding rows
+//     are never scored, stored or sorted.  For K > 32 the block sorts in shared
+//     memory only the rows up to the block's last real row (rounded up
+//     to a power of two at least K), masked rows at -inf;
 //   * a block stages its TB-query projection (asym) or TB query
 //     signatures and value table (sym) once into shared memory and
-//     serves SLOTS_PER_WARP slots per warp (sum) or TOPK_BLOCKS
-//     payload blocks (top-k).
+//     serves SLOTS_PER_WARP slots per warp (sum) or TOPK_PER_WARP
+//     payload blocks per warp (top-k).
 // The TPU's 2-slot DMA ring is a data-movement schedule; this first
 // port reads signatures straight from device memory (no cp.async/TMA
 // pipeline).
@@ -64,7 +76,8 @@ using namespace asym_tile;
 
 constexpr int SLOTS_PER_WARP = 4;           // slots per warp, sum
 constexpr int SLOTS_PER_BLOCK = WARPS * SLOTS_PER_WARP;
-constexpr int TOPK_BLOCKS = 8;              // payload blocks per block, top-k
+constexpr int TOPK_PER_WARP = 4;            // payload blocks per warp, top-k
+constexpr int TOPK_BLOCKS = WARPS * TOPK_PER_WARP;
 
 __global__ void __launch_bounds__(THREADS)
 megascan_segsum_kernel(const float* __restrict__ q,
@@ -99,38 +112,80 @@ megascan_segsum_kernel(const float* __restrict__ q,
   }
 }
 
+// Top-k, K <= WARP_K: warp w selects payload blocks blockIdx.x *
+// TOPK_BLOCKS + w * TOPK_PER_WARP + i, i < TOPK_PER_WARP, in registers.
 __global__ void __launch_bounds__(THREADS)
-megascan_topk_kernel(const float* __restrict__ q,
-                     const float* __restrict__ planes,
-                     const uint32_t* __restrict__ sig,
-                     const int* __restrict__ slots,
-                     float* __restrict__ vals_out, int* __restrict__ pos_out,
-                     int B, int dim, int bits, int W, int n_blocks, int tm,
-                     int K, int n_valid, float scale, float temperature) {
+megascan_topk_warp_kernel(const float* __restrict__ q,
+                          const float* __restrict__ planes,
+                          const uint32_t* __restrict__ sig,
+                          const int* __restrict__ slots,
+                          float* __restrict__ vals_out,
+                          int* __restrict__ pos_out, int B, int dim,
+                          int bits, int W, int n_blocks, int tm, int K,
+                          int n_valid, float scale, float temperature) {
+  extern __shared__ float4 smem4[];
+  float* proj_t = reinterpret_cast<float*>(smem4);
+  float* q_s = proj_t + (size_t)bits * TB;
+  const int q0 = blockIdx.y * TB;
+  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
+  const int nb = min(TB, B - q0);
+  const size_t row_len = (size_t)n_blocks * K;
+  const int j_first = blockIdx.x * TOPK_BLOCKS
+                      + threadIdx.x / 32 * TOPK_PER_WARP;
+  for (int i = 0; i < TOPK_PER_WARP; ++i) {
+    const int j = j_first + i;
+    if (j >= n_blocks) break;                // uniform across the warp
+    float tv[TB];
+    int ti[TB];
+    warp_topk(sig, W, bits / 32, smem4, scale, temperature, j * tm, tm, K,
+              [slots, n_valid](int row) { return __ldg(slots + row) < n_valid; },
+              tv, ti);
+    write_ranks(vals_out, pos_out, q0, nb, row_len, (size_t)j * K, K, tv,
+                ti);
+  }
+}
+
+// Top-k, K > WARP_K: the block takes TOPK_BLOCKS payload blocks in turn
+// and sorts each one's first sort_width(extent, K) rows in shared
+// memory.
+__global__ void __launch_bounds__(THREADS)
+megascan_topk_sort_kernel(const float* __restrict__ q,
+                          const float* __restrict__ planes,
+                          const uint32_t* __restrict__ sig,
+                          const int* __restrict__ slots,
+                          float* __restrict__ vals_out,
+                          int* __restrict__ pos_out, int B, int dim,
+                          int bits, int W, int n_blocks, int tm, int K,
+                          int n_valid, float scale, float temperature) {
   extern __shared__ float4 smem4[];
   float* proj_t = reinterpret_cast<float*>(smem4);
   float* q_s = proj_t + (size_t)bits * TB;
   float* vals = q_s + (size_t)TB * dim;
   int* idx = reinterpret_cast<int*>(vals + (size_t)TB * tm);
+  int* warp_max = idx + (size_t)TB * tm;
   const int q0 = blockIdx.y * TB;
   project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
   const int nb = min(TB, B - q0);
   const int nwords = bits / 32;
   const size_t row_len = (size_t)n_blocks * K;
+  const auto real = [slots, n_valid](int row) {
+    return __ldg(slots + row) < n_valid;
+  };
   for (int t = 0; t < TOPK_BLOCKS; ++t) {
     const int j = blockIdx.x * TOPK_BLOCKS + t;
     if (j >= n_blocks) break;                // uniform across the block
-    score_tile(sig, W, nwords, smem4, scale, temperature, j * tm, tm,
-               [slots, n_valid](int row) { return slots[row] < n_valid; },
+    const int first = j * tm;
+    const int n = sort_width(tile_extent(first, tm, real, warp_max), K);
+    score_tile(sig, W, nwords, smem4, scale, temperature, first, n, real,
                vals, idx);
-    bitonic_sort_desc(vals, idx, TB, tm);
+    bitonic_sort_desc(vals, idx, TB, n);
     for (int e = threadIdx.x; e < TB * K; e += blockDim.x) {
       const int b = e / K;
       const int r = e - b * K;
       if (b < nb) {
         const size_t o = (size_t)(q0 + b) * row_len + (size_t)j * K + r;
-        vals_out[o] = vals[b * tm + r];
-        pos_out[o] = idx[b * tm + r];
+        vals_out[o] = vals[b * n + r];
+        pos_out[o] = idx[b * n + r];
       }
     }
     __syncthreads();                         // the next block reuses vals
@@ -197,13 +252,15 @@ int megascan_topk_launch(const float* q, const float* planes,
                          int W, int tm, int K, int n_valid, float scale,
                          float temperature, void* stream) {
   cudaGetLastError();
-  const size_t smem = smem_bytes(bits, dim, tm);
-  cudaError_t err = prepare(megascan_topk_kernel, smem);
+  const auto kernel = K <= WARP_K ? megascan_topk_warp_kernel
+                                  : megascan_topk_sort_kernel;
+  const size_t smem = topk_smem_bytes(bits, dim, tm, K);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = n_rows / tm;
   const dim3 grid((n_blocks + TOPK_BLOCKS - 1) / TOPK_BLOCKS,
                   (B + TB - 1) / TB);
-  megascan_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, planes, sig, slots, vals, pos, B, dim, bits, W, n_blocks, tm, K,
       n_valid, scale, temperature);
   return (int)cudaGetLastError();

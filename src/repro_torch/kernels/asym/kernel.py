@@ -50,8 +50,10 @@ def _lib() -> ctypes.CDLL:
         lib.asym_exp_topk_launch.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         lib.asym_exp_topk_launch.restype = _I
-        lib.asym_topk_smem.argtypes = [_I, _I, _I]
+        lib.asym_topk_smem.argtypes = [_I, _I, _I, _I]
         lib.asym_topk_smem.restype = ctypes.c_size_t
+        lib.asym_topk_warp_k.argtypes = []
+        lib.asym_topk_warp_k.restype = _I
         lib.asym_smem_limit.argtypes = []
         lib.asym_smem_limit.restype = _I
         lib._asym_typed = True
@@ -95,11 +97,13 @@ def _check_grid(b: int) -> None:
         raise ValueError(f"too many queries for one launch: B={b}")
 
 
-def _check_smem(bits: int, dim: int, tm: int, what: str) -> None:
-    """Raise if a ``tm``-row top-k tile (``asym_tile.cuh``, shared by
-    every top-k kernel) does not fit in a block's shared memory."""
+def _check_smem(bits: int, dim: int, tm: int, k: int, what: str) -> None:
+    """Raise if a top-k block's shared memory (``asym_tile.cuh``, shared
+    by every top-k kernel: the projection and, for a k the warp
+    selection does not take, the ``tm``-row tile) does not fit."""
     lib = _lib()
-    smem, limit = lib.asym_topk_smem(bits, dim, tm), lib.asym_smem_limit()
+    smem = lib.asym_topk_smem(bits, dim, tm, k)
+    limit = lib.asym_smem_limit()
     if smem > limit:
         raise ValueError(
             f"{what} needs {smem} bytes of shared memory per block at "
@@ -167,15 +171,22 @@ def topk_tile(k: int) -> int:
     return max(256, 1 << max(0, int(k) - 1).bit_length())
 
 
+def topk_selection(k: int) -> str:
+    """How the top-k kernels select k per tile: ``"warp"`` (in
+    registers, k up to ``asym_tile.cuh``'s WARP_K) or ``"sort"`` (a
+    bitonic sort in shared memory)."""
+    return "warp" if k <= _lib().asym_topk_warp_k() else "sort"
+
+
 def asym_topk_kernel(q: torch.Tensor, planes: torch.Tensor,
                      db: torch.Tensor, bits: int, k: int, *,
                      temperature: float = 1.0
                      ) -> "tuple[torch.Tensor, torch.Tensor]":
     """[B, dim] unit rows x [M, W] packed int32 -> per-tile top-k
     candidates ([B, J*k] float32 values, [B, J*k] int32 doc indices),
-    J = ceil(M / topk_tile(k)), on the hand-written CUDA kernel.  A
-    tile is sorted in shared memory; a k whose tile does not fit there
-    raises."""
+    J = ceil(M / topk_tile(k)), on the hand-written CUDA kernel.  A k
+    past the warp selection sorts its tile in shared memory; one whose
+    tile does not fit there raises."""
     b, dim, m, w = _check(q, planes, db, bits)
     if not 0 < k <= m:
         raise ValueError(f"k={k} must be in [1, M={m}]")
@@ -188,7 +199,7 @@ def asym_topk_kernel(q: torch.Tensor, planes: torch.Tensor,
     _check_grid(b)
     if m + tm > _INT32_MAX:
         raise ValueError(f"too many rows for int32 indexing: M={m}")
-    _check_smem(bits, dim, tm, f"k={k}'s {tm}-doc tile")
+    _check_smem(bits, dim, tm, k, f"k={k}'s {tm}-doc tile")
     rc = _lib().asym_exp_topk_launch(
         q.data_ptr(), planes.data_ptr(), db.data_ptr(), vals.data_ptr(),
         idx.data_ptr(), b, dim, bits, m, w, tm, k, _scale(bits),

@@ -119,7 +119,7 @@ def asym_megascan_topk_kernel(q: torch.Tensor, planes: torch.Tensor,
     if b == 0 or n_blocks == 0:
         return vals, pos
     _check_grid(b)
-    _check_smem(bits, dim, tm, f"tm={tm}")
+    _check_smem(bits, dim, tm, k, f"k={k} at tm={tm}")
     rc = _lib().megascan_topk_launch(
         q.data_ptr(), planes.data_ptr(), sig.data_ptr(), slots.data_ptr(),
         vals.data_ptr(), pos.data_ptr(), b, dim, bits, n_rows, w, tm, k,

@@ -1,6 +1,8 @@
 """Checks and inputs shared by the port's tests and ``chip_smoke.py``."""
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -12,6 +14,10 @@ from repro_torch.core import lsh
 NEGSAMP_SHAPES = [(16, 32, 5, 1.0), (100, 64, 3, 8.0), (256, 16, 1, 4.0),
                   (7, 128, 8, 8.0)]
 KMEANS_SHAPES = [(10, 3, 8), (513, 16, 32), (1000, 7, 64)]
+# The top-k kernels' selection cases (rows 3, 9/10): k on both sides of
+# the 32 ranks a warp holds, and valid rows per tile or payload block.
+SELECT_KS = (1, 10, 31, 32, 33, 300)
+SELECT_VALID = (0, 1, "k-1", "k", "k+1", 32, 33, 256)
 
 
 def _np(x) -> np.ndarray:
@@ -36,6 +42,53 @@ def assert_ids_equal_away_from_ties(got_ids, want_ids, vals,
     clear[:, :-1] &= gap
     if not np.array_equal(_np(got_ids)[clear], _np(want_ids)[clear]):
         raise AssertionError(f"{what}: ids differ away from ties")
+
+
+def topk_candidates_from_scores(scores: torch.Tensor, k: int, tm: int,
+                                valid: "torch.Tensor | None" = None
+                                ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The top-k kernels' candidates from a [B, M] score matrix: per
+    tile of ``tm`` columns, a stable descending sort with the columns
+    that are not ``valid`` ([M] bool; all are when None) and those past
+    M at -inf, and the first ``k`` (value, column) pairs of each tile.
+    Fed with the similarity kernel's scores it gives the top-k kernels'
+    exact output, ids and ties included.  Returns ([B, J*k] float32,
+    [B, J*k] int32), J = ceil(M / tm)."""
+    b, m = scores.shape
+    j = -(-m // tm)
+    padded = scores.new_full((b, j * tm), -math.inf)
+    padded[:, :m] = (scores if valid is None
+                     else torch.where(valid, scores, -math.inf))
+    vals, pos = torch.sort(padded.view(b, j, tm), dim=-1, descending=True,
+                           stable=True)
+    pos = pos + torch.arange(j, device=pos.device)[:, None] * tm
+    return (vals[..., :k].reshape(b, j * k),
+            pos[..., :k].reshape(b, j * k).to(torch.int32))
+
+
+def select_counts(k: int, tm: int, lowest: int = 0) -> list:
+    """``SELECT_VALID`` for this k, those in [lowest, tm], ascending."""
+    named = {"k-1": k - 1, "k": k, "k+1": k + 1}
+    return sorted({named.get(c, c) for c in SELECT_VALID}
+                  & set(range(lowest, tm + 1)))
+
+
+def block_slots(counts, tm: int, n_valid: int, scattered: bool,
+                rng) -> np.ndarray:
+    """[len(counts) * tm] int32 row -> slot map with ``counts[j]`` rows
+    of block j in a valid slot (< ``n_valid``), the first ones of the
+    block or, if ``scattered``, rows drawn at random; the other rows
+    carry slots in [n_valid, 200)."""
+    slots = np.empty(len(counts) * tm, np.int32)
+    for j, c in enumerate(counts):
+        real = np.zeros(tm, bool)
+        if scattered:
+            real[rng.choice(tm, c, replace=False)] = True
+        else:
+            real[:c] = True
+        slots[j * tm:(j + 1) * tm] = np.where(
+            real, rng.integers(0, n_valid, tm), rng.integers(n_valid, 200, tm))
+    return slots
 
 
 def ragged_segments(counts, dim: int, bits: int, seed: int, dup: bool = False):

@@ -17,10 +17,11 @@ from repro_torch.data.store import ShardedCorpus
 from repro_torch.kernels.asym import kernel as tkernel
 from repro_torch.kernels.asym import ops as tops
 from repro_torch.kernels.asym import ref as tref
-from repro_torch.testing import (KMEANS_SHAPES, NEGSAMP_SHAPES,
+from repro_torch.testing import (KMEANS_SHAPES, NEGSAMP_SHAPES, SELECT_KS,
                                  assert_assign_away_from_ties,
                                  assert_ids_equal_away_from_ties,
-                                 ragged_segments)
+                                 block_slots, ragged_segments, select_counts,
+                                 topk_candidates_from_scores)
 
 
 @pytest.fixture
@@ -31,10 +32,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _setup(b, m, dim, bits, seed, device):
+def _setup(b, m, dim, bits, seed, device, dup=False):
+    """Queries, planes and packed rows from ``seed``; ``dup`` makes every
+    odd row a copy of the even row before it (exact value ties)."""
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.normal(size=(b, dim)).astype(np.float32)).to(device)
-    x = torch.from_numpy(rng.normal(size=(m, dim)).astype(np.float32)).to(device)
+    x = rng.normal(size=(m, dim)).astype(np.float32)
+    if dup:
+        x[1::2] = x[0::2][:m // 2]
+    x = torch.from_numpy(x).to(device)
     planes = lsh.hyperplanes(lsh.LSHConfig(bits=bits), dim, device)
     db = lsh.pack_bits(lsh.signature_bits(x, planes))
     return rng, q, planes, db
@@ -195,6 +201,78 @@ def test_cuda_megascan_matches_plain_and_is_bitwise(cuda_device, counts, tm,
         i1, v1 = mops.megascan_topk(one, q, planes, 64, 5, temperature=4.0)
         assert np.array_equal(ids[:, s], i1[:, 0])
         assert np.array_equal(vals[:, s], v1[:, 0])
+
+
+def _hold_candidates(got, again, exact, plain, what):
+    """Top-k candidates (values, ids): bitwise run to run, bitwise the
+    oracle over the similarity kernel's scores, and within rtol=1e-4 of
+    the plain version with ids equal away from near-ties."""
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), (
+        f"{what}: not bitwise repeatable")
+    assert torch.equal(got[0], exact[0]), f"{what}: values != oracle"
+    assert torch.equal(got[1], exact[1]), f"{what}: ids != oracle"
+    assert torch.equal(torch.isfinite(got[0]), torch.isfinite(plain[0]))
+    fin = torch.isfinite(plain[0])
+    torch.testing.assert_close(got[0][fin], plain[0][fin], rtol=1e-4, atol=0)
+    assert_ids_equal_away_from_ties(got[1], plain[1], plain[0], what)
+
+
+TOPK_SELECT = [(k, c) for k in SELECT_KS
+               for c in select_counts(k, tkernel.topk_tile(k), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("k,last", TOPK_SELECT)
+def test_cuda_topk_selection_is_exact(cuda_device, k, last, dup):
+    """Row 3 over two tiles, the last with ``last`` docs (M ragged
+    unless it is full), B=9 (a partial query tile), k on both sides of
+    the warp selection."""
+    tm = tkernel.topk_tile(k)
+    _, q, planes, db = _setup(9, tm + last, 16, 64, k * 1000 + last,
+                              cuda_device, dup)
+    qn = tops._prep_queries(q)
+    got = tkernel.asym_topk_kernel(qn, planes, db, 64, k, temperature=4.0)
+    again = tkernel.asym_topk_kernel(qn, planes, db, 64, k, temperature=4.0)
+    scores = tkernel.asym_similarity_kernel(qn, planes, db, 64,
+                                            temperature=4.0)
+    plain = tref.asym_topk_candidates_ref(qn, db, planes, 64, k, tm, 4.0)
+    _hold_candidates(got, again, topk_candidates_from_scores(scores, k, tm),
+                     plain, f"k={k} last={last} dup={dup}")
+
+
+MEGA_SELECT = [(k, tm, scattered) for k in SELECT_KS for tm in (256, 512)
+               if (tm == 256) == (k <= 256) for scattered in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("k,tm,scattered", MEGA_SELECT)
+def test_cuda_megascan_topk_selection_is_exact(cuda_device, k, tm,
+                                               scattered, dup):
+    """Rows 9/10: one payload block per valid-row count (0, 1, k-1, k,
+    k+1, 32, 33, 256), the valid rows first (the payload's layout) or
+    scattered over the block, B=9."""
+    from repro_torch.kernels.megascan import kernel as mker
+    from repro_torch.kernels.megascan import ref as mref
+    counts = select_counts(k, tm)
+    rng, q, planes, sig = _setup(9, len(counts) * tm, 16, 64, k + tm,
+                                 cuda_device, dup)
+    qn = tops._prep_queries(q)
+    slots = torch.from_numpy(block_slots(counts, tm, 5, scattered, rng)).to(
+        cuda_device)
+    got = mker.asym_megascan_topk_kernel(qn, planes, sig, slots, 64, k, 5, tm,
+                                         temperature=4.0)
+    again = mker.asym_megascan_topk_kernel(qn, planes, sig, slots, 64, k, 5,
+                                           tm, temperature=4.0)
+    scores = tkernel.asym_similarity_kernel(qn, planes, sig, 64,
+                                            temperature=4.0)
+    plain = mref.asym_megascan_topk_ref(qn, sig, slots, planes, 64, k, 5, tm,
+                                        4.0)
+    _hold_candidates(got, again,
+                     topk_candidates_from_scores(scores, k, tm, slots < 5),
+                     plain, f"k={k} tm={tm} scattered={scattered} dup={dup}")
 
 
 # ----------------------------------------------------------------------
