@@ -54,7 +54,10 @@ Phases, each of which raises (exit code not 0) on any failure:
                 compare per candidate for the top-k kernels; the figure
                 with the top-k kernels' own selection work, counted on
                 this run's scores by ``selection_work``, is printed
-                beside it).  The Hamming
+                beside it).  Rows 2 and 7 (table-lookup scoring) also
+                print their shared memory per block, their grid and the
+                largest gap to ``testing.lut_segment_sums``, the same
+                arithmetic in PyTorch on the card.  The Hamming
                 kernels' bound takes their popcounts over the card's
                 popcount rate instead (``popc_rate``: SMs x 16 per
                 clock, compute capability 9.0, x the max SM clock).
@@ -115,7 +118,10 @@ Phases, each of which raises (exit code not 0) on any failure:
                 final assignment against the plain version on the card,
                 ids away from near-ties (top two within 1e-4), scores
                 within rtol 1e-4; iterations and the wall of each (from
-                ``spherical_kmeans``' callback), cluster sizes; row 12 timed (median of 5) beside its plain
+                ``spherical_kmeans``' callback), cluster sizes; a second
+                run from the same seed gives the same assignment and
+                centroid bits (the update sums clusters in a fixed
+                order); row 12 timed (median of 5) beside its plain
                 version, the chunked ``torch.matmul`` + ``max`` (two
                 calls a chunk, TF32 off) and its bound.
  14. offline build and serve — the JAX package's pipeline in the order
@@ -931,11 +937,17 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
     serial_ms, _ = bound(least_ops(b, m, bits, dim, 0, bit_serial=True),
                          nbytes)
     log(f"   segment sum bound if bit-serial on CUDA cores: {serial_ms} ms")
+    launch = k.segsum_launch_shape(bits, dim, n_shards, b)
+    log(f"   segment sum launch (table lookup): {launch}, 256 threads a "
+        f"block")
+    log_model_gap(got, vecs, sig, planes, bits, offs[:-1],
+                  offs[1:] - offs[:-1], beta, "segment sum")
     kernels.append(dict(
         name="asym_exp_segment_sum", route="cuda",
         source="src/repro_torch/csrc/asym.cu",
         replaces="src/repro/kernels/asym/kernel.py:191",
         launches=launches["asym_exp_segment_sum"], max_abs_err=err,
+        launch=launch,
         **timed(lambda: k.asym_segment_sum_kernel(
             qn, planes, sig, offs, bits, temperature=beta)),
         plain_ms=time_ms(lambda: ref.asym_exp_segment_sum_ref(
@@ -977,6 +989,20 @@ def log_kernel(kr: dict, shape: dict) -> None:
         f"ms, bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}, max abs "
         f"err {kr['max_abs_err']:.3g}, "
         f"{kr.get('launches_by_path', kr['launches'])} launches) at {shape}")
+
+
+def log_model_gap(got, vecs, db, planes, bits, starts, counts, beta,
+                  what: str) -> None:
+    """Print the largest relative gap between a segment-sum kernel's
+    output and ``testing.lut_segment_sums``, the same table-lookup
+    arithmetic in PyTorch, on the same device (their projections differ
+    in summation order)."""
+    from repro_torch.testing import lut_segment_sums
+    model = lut_segment_sums(vecs, db, planes, bits, starts, counts, beta)
+    gap = ((got.double() - model.double()).abs()
+           / model.double().abs().clamp(min=1e-30)).max()
+    log(f"   {what}: largest relative gap to the table-lookup model "
+        f"{float(gap):.3g}")
 
 
 def finite_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1179,6 +1205,11 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
         temperature=beta), "megascan sum, full fleet")
     err = close(got, torch.from_numpy(plain_sum).to(dev),
                 "megascan sum, full fleet")
+    launch = mk.segsum_launch_shape(bits, dim, n_slots, b)
+    log(f"   megascan sum launch (table lookup): {launch}, 256 threads a "
+        f"block")
+    log_model_gap(got, q, pay.sig, planes, bits, pay.row_start,
+                  pay.row_count, beta, "megascan sum")
     nbytes = 4.0 * (real * w + 2 * n_slots + b * dim + bits * dim
                     + b * n_slots)
     bound_ms, bound_by = bound(least_ops(b, real, bits, dim, 4), nbytes)
@@ -1189,6 +1220,7 @@ def megascan_phase(dev: torch.device, args, ctx: dict) -> list:
         source="src/repro_torch/csrc/megascan.cu",
         replaces="src/repro/kernels/megascan/kernel.py:182",
         launches=launches["megascan_segsum"], max_abs_err=err,
+        launch=launch,
         **timed(lambda: mk.asym_megascan_segsum_kernel(
             qn, planes, pay.sig, pay.row_start, pay.row_count, bits,
             temperature=beta)),
@@ -1844,6 +1876,17 @@ def kmeans_phase(dev: torch.device, ctx: dict) -> list:
     log(f"   cluster sizes: max {sizes.max()}, empty {int((sizes == 0).sum())}"
         f", median {np.median(sizes)}")
     ctx["kmeans_launches"] = launches
+    t = time.perf_counter()
+    assign2, centroids2 = allocation.spherical_kmeans(model.doc_vecs, cfg,
+                                                      device=dev)
+    if not (np.array_equal(assign, assign2)
+            and np.array_equal(centroids.view(np.uint32),
+                               centroids2.view(np.uint32))):
+        raise AssertionError("a second spherical_kmeans from the same seed "
+                             "gave another assignment or other centroid "
+                             "bits")
+    log(f"   a second k-means from the same seed: the same assignment and "
+        f"centroid bits ({time.perf_counter() - t:.3f} s)")
 
     x = allocation._unit(model.doc_vecs.float())
     c = torch.as_tensor(centroids, device=dev)

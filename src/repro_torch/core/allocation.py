@@ -8,8 +8,10 @@ shard-level p(w|s) the way retrieval-style queries need.
 The assignment step (documents x centroids, then the row argmax) runs
 through ``kernels/kmeans``: the hand-written CUDA kernel on a CUDA
 device, its plain version on the CPU; the config has no ``use_kernel``
-flag, the device picks the route.  The centroid update
-is a segment sum (``index_add_``).  The initial centroids are a random
+flag, the device picks the route.  The centroid update sums each
+cluster's rows in a fixed order, with no float atomics (``_update``),
+so two runs on the card give the same centroid bits, and the same bits
+as the CPU route's sums.  The initial centroids are a random
 choice of documents from a ``torch.Generator`` (the reference draws
 them with threefry, which torch cannot reproduce); ``init_ids`` injects
 them for parity.
@@ -44,15 +46,28 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
                            min=1e-8)
 
 
-def _update(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
-    """New unit centroids: the mean of each cluster's rows; a dead
-    centroid (no rows) becomes the unit vector along (1, ..., 1), as in
-    the reference."""
+def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int
+                 ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """([k, dim] sums, [k] int64 counts) of each cluster's rows.  The rows
+    are sorted stably by cluster and each cluster's rows are added one
+    after another, in row order, from 0 (``torch.segment_reduce`` over
+    the clusters' lengths): no float atomics, so the sums are the same
+    bits on every run and on every device.  The counts are an integer
+    ``bincount``, exact."""
     idx = assign.long()
-    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype,
-                       device=x.device).index_add_(0, idx, x)
-    counts = torch.zeros(k, dtype=x.dtype, device=x.device).index_add_(
-        0, idx, torch.ones_like(idx, dtype=x.dtype))
+    counts = torch.bincount(idx, minlength=k)
+    rows = x[torch.argsort(idx, stable=True)]
+    sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0,
+                                unsafe=True)
+    return sums, counts
+
+
+def _update(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
+    """New unit centroids: the mean of each cluster's rows
+    (``cluster_sums``); a dead centroid (no rows) becomes the unit vector
+    along (1, ..., 1), as in the reference."""
+    sums, counts = cluster_sums(x, assign, k)
+    counts = counts.to(x.dtype)
     alive = counts[:, None] > 0
     new_c = sums / torch.clamp(counts[:, None], min=1.0)
     return _unit(torch.where(alive, new_c, 0.0)

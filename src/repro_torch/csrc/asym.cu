@@ -15,14 +15,18 @@
 //     wrapper takes the final top-k over the [B, ceil(M/TM)*K]
 //     candidates, so the [B, M] matrix never reaches device memory.
 //
-// What bounds them on the card: the sign product.  Per (query, doc) it
-// is `bits` multiply-adds in fp32 (2*B*M*bits operations), against
-// bits/8 bytes of packed signature per doc, so at the serving shapes
-// (B in the tens, bits = 256) the kernels sit far above the fp32 ridge
-// and are bound by operations, not bytes.  The parity path stays in
-// fp32 (no TF32/bf16 tensor cores), so the bound is the card's fp32
-// rate outside the tensor cores.  The top-k adds its selection: for
-// K <= 32, per (query, tile) a 15-stage sort of the first 32 rows
+// What bounds them on the card.  The similarity and the top-k score bit
+// by bit: per (query, doc) `bits` fp32 multiply-adds (2*B*M*bits
+// operations) against bits/8 bytes of packed signature per doc, so at
+// the serving shapes (B in the tens, bits = 256) they sit far above
+// the fp32 ridge and are bound by operations, not bytes.  The segment
+// sum scores by table lookup instead: per (query, doc) bits/4 shared
+// loads and fp32 adds, one per 4-bit chunk of the signature, so it is
+// bound by the shared-memory pipe (one warp-wide 32-bit load per clock
+// per SM) and the fp32 adds beside it.  The parity path stays in fp32
+// (no TF32/bf16 tensor cores), so the operation bound is the card's
+// fp32 rate outside the tensor cores.  The top-k adds its selection:
+// for K <= 32, per (query, tile) a 15-stage sort of the first 32 rows
 // across the warp, then one ballot per later 32 rows and an insertion
 // for each later row that beats the running K-th (about K * (1/1 + ...
 // + 1/7) ≈ 26 at K = 10, TM = 256), all in registers; for K > 32, a
@@ -35,13 +39,23 @@
 //     [bits][TB] so one signature bit's TB projections are two float4
 //     loads that every lane of a warp reads at the same address
 //     (a broadcast, no bank conflicts);
-//   * each lane owns one doc at a time, unpacks its W words to +-1 in
-//     registers and keeps TB running dot products, so every shared
-//     load feeds four multiply-adds and the packed signature is read
-//     once per query tile;
-//   * a block amortises its projection over many docs (SIM_DOCS per
-//     thread in the similarity kernel, SEGS_PER_WARP segments per warp
-//     in the segment sum, TOPK_TILES tiles in the top-k);
+//   * the similarity and the top-k: each lane owns one doc at a time,
+//     unpacks its W words to +-1 in registers and keeps TB running dot
+//     products, so every shared load feeds four multiply-adds and the
+//     packed signature is read once per query tile;
+//   * the segment sum: the block also builds, per query and 4-bit
+//     chunk, the 16 signed sums of the chunk's 4 projections (32 KB at
+//     bits 256, TB 8; build_tables), and a lane scores its doc with one
+//     nibble extract per chunk and, per live query, one conflict-free
+//     table load and one add (lut_dots), about 2 + 2*nb instructions a
+//     chunk against 4 * 12 bit by bit; a query tile with nb < TB live
+//     queries costs nb, not TB (a template on nb);
+//   * a block amortises its projection over many docs: SIM_DOCS per
+//     thread in the similarity kernel, TOPK_TILES tiles in the top-k;
+//     the segment sum launches one wave of blocks (as many as fit on
+//     the card at once, lut_grid_x) whose warps walk the segments in a
+//     fixed stride, so the projection and the tables are built once per
+//     block rather than once per 32 segments;
 //   * the top-k gives each warp one tile; for K <= 32 (the served
 //     k = 10) the warp keeps each query's running top-K in registers
 //     (asym_tile::warp_topk: lane r holds rank r; the first 32 rows are
@@ -56,10 +70,15 @@
 //
 // Determinism of the segment sum: no float atomics.  Rows arrive
 // sorted by segment with CSR offsets (the wrapper builds them; the
-// index caches them).  One warp owns a segment (slot_sum): lane l sums
-// docs lo+l, lo+l+32, ... in that order, then a fixed xor-butterfly of
-// warp shuffles adds the 32 partials.  The same inputs give the same
-// bits on every run.  Empty segments give exact zeros.
+// index caches them).  One warp owns a segment at a time
+// (lut_slot_sum): lane l sums docs lo+l, lo+l+32, ... in that order,
+// then a fixed xor-butterfly of warp shuffles adds the 32 partials.
+// Which block or warp takes a segment does not change its bits, and
+// the same inputs give the same bits on every run.  Empty segments
+// give exact zeros.  The tables need bits * 128 bytes of shared memory
+// at TB 8 (plus the projection and the query tile); the wrapper
+// raises where a block cannot have that much (bits above ≈1,400 at
+// dim 64 on an H100).
 //
 // The entry points take plain pointers and return cudaGetLastError()
 // right after the launch, so the Python wrapper can raise on a launch
@@ -72,8 +91,6 @@ namespace {
 using namespace asym_tile;
 
 constexpr int SIM_DOCS = 4;                 // docs per thread, similarity
-constexpr int SEGS_PER_WARP = 4;            // segments per warp, segment sum
-constexpr int SEGS_PER_BLOCK = WARPS * SEGS_PER_WARP;
 constexpr int TOPK_TILES = WARPS;           // tiles per block, top-k
 
 __global__ void __launch_bounds__(THREADS)
@@ -108,26 +125,13 @@ asym_segsum_kernel(const float* __restrict__ q,
                    int B, int dim, int bits, int M, int W, int S, float scale,
                    float temperature) {
   extern __shared__ float4 smem4[];
-  float* proj_t = reinterpret_cast<float*>(smem4);
-  float* q_s = proj_t + (size_t)bits * TB;
-  const int q0 = blockIdx.y * TB;
-  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
-  const int nb = min(TB, B - q0);
-  const int nwords = bits / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int s_first = blockIdx.x * SEGS_PER_BLOCK + warp * SEGS_PER_WARP;
-  for (int i = 0; i < SEGS_PER_WARP; ++i) {
-    const int s = s_first + i;
-    if (s >= S) break;                       // uniform across the warp
-    const int lo = max(0, offsets[s]);
-    const int hi = min(M, offsets[s + 1]);
-    float acc[TB];
-    slot_sum(db, lo, hi, W, nwords, smem4, scale, temperature, acc);
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-      if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];
-  }
+  lut_segsum_block(
+      q, planes, db, B, dim, bits, W, S, scale, temperature,
+      [offsets, M](int s, int& lo, int& hi) {
+        lo = max(0, offsets[s]);
+        hi = min(M, offsets[s + 1]);
+      },
+      out, reinterpret_cast<float*>(smem4));
 }
 
 // Top-k, K <= WARP_K: warp w of the block selects tile
@@ -229,16 +233,30 @@ int asym_exp_similarity_launch(const float* q, const float* planes,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of one segment-sum block (rows 2 and 7: the projection,
+// the query tile and the lookup tables) at these widths.
+size_t asym_lut_smem(int bits, int dim) { return lut_smem_bytes(bits, dim); }
+
+// Blocks along x of a segment-sum launch over S slots for B queries
+// (the grid is that by ceil(B / TB)); a negative CUDA error if the
+// kernel cannot take the shared memory.
+int asym_segsum_grid_x(int bits, int dim, int S, int B) {
+  const size_t smem = lut_smem_bytes(bits, dim);
+  cudaError_t err = prepare(asym_segsum_kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return lut_grid_x(asym_segsum_kernel, smem, S, (B + TB - 1) / TB);
+}
+
 int asym_exp_segment_sum_launch(const float* q, const float* planes,
                                 const uint32_t* db, const int* offsets,
                                 float* out, int B, int dim, int bits, int M,
                                 int W, int S, float scale, float temperature,
                                 void* stream) {
   cudaGetLastError();
-  const size_t smem = sim_smem_bytes(bits, dim);
+  const size_t smem = lut_smem_bytes(bits, dim);
   cudaError_t err = prepare(asym_segsum_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + SEGS_PER_BLOCK - 1) / SEGS_PER_BLOCK,
+  const dim3 grid(lut_grid_x(asym_segsum_kernel, smem, S, (B + TB - 1) / TB),
                   (B + TB - 1) / TB);
   asym_segsum_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, planes, db, offsets, out, B, dim, bits, M, W, S, scale, temperature);

@@ -3,12 +3,27 @@
 //   * project_tile: a block's TB-query projection q . planes^T, once,
 //     into shared memory, transposed to [bits][TB];
 //   * doc_dots / exp_sim: one row's +-1 dot products with the TB
-//     projections, bit 0 first, and exp(beta * clip(dot * scale));
-//   * slot_sum: one warp's sum of exp_sim over a contiguous row range
-//     [lo, hi) — lane l takes rows lo+l, lo+l+32, ... in that order,
-//     then a fixed xor-butterfly adds the 32 partials, so every lane
-//     ends with the same totals and a slot's sum depends only on its
-//     own rows, taken in a fixed order (no float atomics);
+//     projections, bit 0 first, and exp(beta * clip(dot * scale)); the
+//     similarity and top-k kernels (rows 1, 3, 9/10) score with these;
+//   * build_tables / lut_slot_sum: the segment sums' (rows 2, 7)
+//     table-lookup scoring.  After the projection, the block builds
+//     per query and 4-bit chunk c of the signature the 16 signed sums
+//         T[c][b][n] = sum_{i<4} (bit i of n ? +1 : -1) * proj[4c+i][b],
+//     added i = 0 first, laid out [chunk][query][16] so the 32 lanes of
+//     a warp reading one query's entries hit 16 distinct banks whatever
+//     nibbles their rows hold (no conflict; equal nibbles broadcast).
+//     A row's dot for query b is then one table load and one add per
+//     chunk, chunks in ascending order from 0.  lut_slot_sum is one
+//     warp's sum of exp_sim over a contiguous row range [lo, hi): lane
+//     l takes rows lo+l, lo+l+32, ... in that order, then a fixed
+//     xor-butterfly adds the 32 partials, so every lane ends with the
+//     same totals and a slot's sum depends only on its own rows, taken
+//     in a fixed order (no float atomics).  It is a template on the
+//     block's live queries NB, so a partly filled query tile costs only
+//     its live queries.  lut_project gives project_tile's projection,
+//     bit for bit, from 16-byte loads (the block's set-up, once per
+//     block of a one-wave grid), and lut_dots reads a row's words 16
+//     bytes at a time where the rows are aligned;
 //   * warp_topk: the top-k kernels' selection for K <= WARP_K: one warp
 //     scores a tile's real rows, 32 at a time, and keeps each query's
 //     K best (value, row) in registers, lane r holding rank r; a
@@ -26,10 +41,12 @@
 // rows by (value desc, row asc), then, where fewer than K rows are
 // real, the lowest masked rows in ascending order.
 //
-// The sum adds with __fadd_rn, which the compiler never contracts
-// into an FMA, so every kernel that inlines slot_sum rounds each add
-// the same way: the slice-1 segment sum over a slot map and the
-// megascan over the block-aligned payload give the same bits.
+// The table build, the lookups and the sum add with __fadd_rn, which
+// the compiler never contracts into an FMA, so every kernel that
+// inlines lut_slot_sum rounds each add the same way: the slice-1
+// segment sum over a slot map and the megascan over the block-aligned
+// payload give the same bits (repro_torch.testing.lut_segment_sums is
+// the same arithmetic in PyTorch, for the CPU tests).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -102,30 +119,197 @@ __device__ __forceinline__ float exp_sim(float dot, float scale,
   return expf(temperature * c);
 }
 
-// acc[b] = sum of exp_sim over rows [lo, hi) for the block's TB
+constexpr int LUT_BITS = 4;                 // signature bits per lookup
+constexpr int LUT_SIZE = 1 << LUT_BITS;     // entries per (chunk, query)
+constexpr int LUT_PER_WORD = 32 / LUT_BITS; // chunks per packed word
+
+// tab[(c * TB + b) * LUT_SIZE + n] = T[c][b][n] for the block's TB
+// queries (padding queries have a zero projection, so zero tables)
+__device__ inline void build_tables(const float* proj_t, int bits,
+                                    float* tab) {
+  const int n_entries = bits / LUT_BITS * TB * LUT_SIZE;
+  for (int e = threadIdx.x; e < n_entries; e += blockDim.x) {
+    const int n = e % LUT_SIZE;
+    const int b = (e / LUT_SIZE) % TB;
+    const int c = e / (LUT_SIZE * TB);
+    const float* p = proj_t + (size_t)c * LUT_BITS * TB + b;
+    float t = (n & 1) ? p[0] : -p[0];
+#pragma unroll
+    for (int i = 1; i < LUT_BITS; ++i)
+      t = __fadd_rn(t, ((n >> i) & 1) ? p[i * TB] : -p[i * TB]);
+    tab[e] = t;
+  }
+  __syncthreads();
+}
+
+// dot[b] = sum over the 4-bit chunks c of the first 32*nwords bits of
+// T[c][b][chunk c of row], c ascending, for the first NB queries.  The
+// row's words are read four at a time, as one 16-byte load where
+// ``vec`` says the rows allow it (every row 16-byte aligned, nwords a
+// multiple of 4), so a warp's 32 rows cost the unified L1/shared
+// pipe a few wavefronts rather than one per word.
+template <int NB>
+__device__ __forceinline__ void lut_dots(const uint32_t* __restrict__ row,
+                                         int nwords, bool vec,
+                                         const float* __restrict__ tab,
+                                         float (&dot)[NB]) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) dot[b] = 0.f;
+  for (int k0 = 0; k0 < nwords; k0 += 4) {
+    uint32_t ws[4];
+    if (vec) {                               // uniform across the warp
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + k0));
+      ws[0] = v.x; ws[1] = v.y; ws[2] = v.z; ws[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        ws[j] = k0 + j < nwords ? __ldg(row + k0 + j) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k0 + j >= nwords) break;           // uniform across the warp
+      const uint32_t w = ws[j];
+      const float* t = tab + (size_t)(k0 + j) * LUT_PER_WORD * TB * LUT_SIZE;
+#pragma unroll
+      for (int c = 0; c < LUT_PER_WORD; ++c) {
+        const float* tc = t + c * TB * LUT_SIZE + ((w >> (LUT_BITS * c)) & 15u);
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          dot[b] = __fadd_rn(dot[b], tc[b * LUT_SIZE]);
+      }
+    }
+  }
+}
+
+// acc[b] = sum of exp_sim over rows [lo, hi) for the block's first NB
 // queries, in the same bits on every lane of the calling warp.  The
 // whole warp must call it with the same lo and hi.
-__device__ __forceinline__ void slot_sum(const uint32_t* __restrict__ db,
-                                         int lo, int hi, int W, int nwords,
-                                         const float4* __restrict__ proj4,
-                                         float scale, float temperature,
-                                         float (&acc)[TB]) {
+template <int NB>
+__device__ __forceinline__ void lut_slot_sum(const uint32_t* __restrict__ db,
+                                             int lo, int hi, int W,
+                                             int nwords, bool vec,
+                                             const float* __restrict__ tab,
+                                             float scale, float temperature,
+                                             float (&acc)[NB]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int b = 0; b < TB; ++b) acc[b] = 0.f;
+  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
   for (int m = lo + lane; m < hi; m += 32) {
-    float dot[TB];
-    doc_dots(db + (size_t)m * W, nwords, proj4, dot);
+    float dot[NB];
+    lut_dots<NB>(db + (size_t)m * W, nwords, vec, tab, dot);
 #pragma unroll
-    for (int b = 0; b < TB; ++b)
+    for (int b = 0; b < NB; ++b)
       acc[b] = __fadd_rn(acc[b], exp_sim(dot[b], scale, temperature));
   }
   // fixed-shape butterfly: every lane ends with the same total
 #pragma unroll
-  for (int b = 0; b < TB; ++b) {
+  for (int b = 0; b < NB; ++b) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc[b] = __fadd_rn(acc[b], __shfl_xor_sync(0xffffffffu, acc[b], off));
+  }
+}
+
+// The segment-sum kernels' body for NB live queries: warp w of block x
+// takes slots x * WARPS + w, then every gridDim.x * WARPS further, and
+// lane b writes query b's sum of slot s, rows range(s) = [lo, hi), to
+// out[(q0 + b) * S + s].  Which block takes a slot does not change the
+// slot's bits.
+template <int NB, typename Range>
+__device__ inline void lut_slots(const uint32_t* __restrict__ db, int W,
+                                 int nwords, bool vec,
+                                 const float* __restrict__ tab,
+                                 float scale, float temperature, int S,
+                                 Range range, int q0,
+                                 float* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  for (int s = blockIdx.x * WARPS + threadIdx.x / 32; s < S;
+       s += gridDim.x * WARPS) {
+    int lo, hi;
+    range(s, lo, hi);
+    float acc[NB];
+    lut_slot_sum<NB>(db, lo, hi, W, nwords, vec, tab, scale, temperature,
+                     acc);
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (lane == b) out[(size_t)(q0 + b) * S + s] = acc[b];
+  }
+}
+
+// project_tile's projection, the same bits (fmaf over d ascending for
+// each (bit, query)), with the planes' rows and the query tile read 16
+// bytes at a time where dim and the planes' address allow: a warp's 32
+// plane rows are 32 cache lines per load, so 4 floats a load cut the
+// block's set-up about 4x.
+__device__ inline void lut_project(const float* __restrict__ q,
+                                   const float* __restrict__ planes,
+                                   int B, int dim, int bits, int q0,
+                                   float* proj_t, float* q_s) {
+  if ((dim & 3) != 0 || (reinterpret_cast<uintptr_t>(planes) & 15) != 0) {
+    project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
+    return;
+  }
+  const int nb = min(TB, B - q0);
+  for (int i = threadIdx.x; i < TB * dim; i += blockDim.x) {
+    const int b = i / dim;
+    q_s[i] = (b < nb) ? q[(size_t)(q0 + b) * dim + (i - b * dim)] : 0.f;
+  }
+  __syncthreads();
+  const float4* q4 = reinterpret_cast<const float4*>(q_s);
+  const int d4 = dim / 4;
+  for (int j = threadIdx.x; j < bits; j += blockDim.x) {
+    float acc[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) acc[b] = 0.f;
+    const float4* row = reinterpret_cast<const float4*>(planes + (size_t)j * dim);
+    for (int d = 0; d < d4; ++d) {
+      const float4 p = __ldg(row + d);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const float4 x = q4[b * d4 + d];
+        acc[b] = fmaf(x.x, p.x, acc[b]);
+        acc[b] = fmaf(x.y, p.y, acc[b]);
+        acc[b] = fmaf(x.z, p.z, acc[b]);
+        acc[b] = fmaf(x.w, p.w, acc[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < TB; ++b) proj_t[j * TB + b] = acc[b];
+  }
+  __syncthreads();
+}
+
+// The block's projection and tables, then lut_slots for its nb live
+// queries.  smem holds lut_smem_bytes(bits, dim).
+template <typename Range>
+__device__ inline void lut_segsum_block(const float* __restrict__ q,
+                                        const float* __restrict__ planes,
+                                        const uint32_t* __restrict__ db,
+                                        int B, int dim, int bits, int W,
+                                        int S, float scale,
+                                        float temperature, Range range,
+                                        float* __restrict__ out,
+                                        float* smem) {
+  float* proj_t = smem;
+  float* q_s = proj_t + (size_t)bits * TB;
+  float* tab = q_s + (size_t)TB * dim;
+  const int q0 = blockIdx.y * TB;
+  lut_project(q, planes, B, dim, bits, q0, proj_t, q_s);
+  build_tables(proj_t, bits, tab);
+  const int nwords = bits / 32;
+  const bool vec = (W & 3) == 0 && (nwords & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(db) & 15) == 0;
+  switch (min(TB, B - q0)) {                 // uniform across the block
+#define LUT_CASE(N)                                                       \
+  case N:                                                                 \
+    lut_slots<N>(db, W, nwords, vec, tab, scale, temperature, S, range,   \
+                 q0, out);                                                \
+    break;
+    LUT_CASE(1) LUT_CASE(2) LUT_CASE(3) LUT_CASE(4)
+    LUT_CASE(5) LUT_CASE(6) LUT_CASE(7) LUT_CASE(8)
+#undef LUT_CASE
+    default:
+      break;
   }
 }
 
@@ -389,6 +573,13 @@ inline size_t topk_smem_bytes(int bits, int dim, int tm, int K) {
   return smem_bytes(bits, dim, tm) + WARPS * sizeof(int);
 }
 
+// ... of a segment-sum block: the projection, the query tile and the
+// tables, [bits/4][TB][16] floats.
+inline size_t lut_smem_bytes(int bits, int dim) {
+  return smem_bytes(bits, dim, 0) +
+         (size_t)bits / LUT_BITS * TB * LUT_SIZE * sizeof(float);
+}
+
 // The most dynamic shared memory one block may ask for on this device.
 inline int smem_limit() {
   int dev = 0, v = 0;
@@ -404,6 +595,23 @@ cudaError_t prepare(K kernel, size_t smem) {
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
   return cudaSuccess;
+}
+
+// Blocks along x of a segment-sum launch over S slots and n_qtiles
+// query tiles: one wave, as many blocks as fit on the card at once
+// (spread over the query tiles), and no more than the slots need.
+// Call after prepare.
+template <typename K>
+int lut_grid_x(K kernel, size_t smem, int S, int n_qtiles) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                smem);
+  const int wave = (sms * (per_sm > 0 ? per_sm : 1) + n_qtiles - 1) /
+                   n_qtiles;
+  const int need = (S + WARPS - 1) / WARPS;
+  return wave < need ? wave : need;
 }
 
 }  // namespace asym_tile

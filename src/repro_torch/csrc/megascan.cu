@@ -22,30 +22,37 @@
 //     TPU kernels differ only in their data-movement schedule and
 //     give the same candidates; this one kernel ports both.
 //
-// What bounds them on the card: in asym mode, as for asym.cu, the fp32
-// sign product (2 * bits operations per query and real row) — and, in
-// the top-k, its selection: for K <= 32 a 15-stage sort across the
-// warp of the first 32-row chunk that holds a real row, then one ballot
-// per (query, later such chunk) and one insertion per later real row
-// that beats the running K-th (none at serving scale, where a block
-// holds ≈ 26 real rows); for K > 32 a bitonic sort of the next power of
-// two above K and the block's last real row.  In sym mode, as for
-// hamming.cu, the bits/32
-// popcounts per query and real row, issued at 16 per clock per SM.
-// Bytes are the real rows' signatures, bits/8 per row, read once per
-// query tile.
+// What bounds them on the card: in asym mode, the sum scores by table
+// lookup (bits/4 shared loads and fp32 adds per query and real row, one
+// per 4-bit chunk of the signature), bound by the shared-memory pipe;
+// the top-k, as asym.cu's, by the fp32 sign product (2 * bits
+// operations per query and real row) and its selection: for K <= 32 a
+// 15-stage sort across the warp of the first 32-row chunk that holds a
+// real row, then one ballot per (query, later such chunk) and one
+// insertion per later real row that beats the running K-th (none at
+// serving scale, where a block holds ≈ 26 real rows); for K > 32 a
+// bitonic sort of the next power of two above K and the block's last
+// real row.  In sym mode, as for hamming.cu, the bits/32 popcounts per
+// query and real row, issued at 16 per clock per SM.  Bytes are the
+// real rows' signatures, bits/8 per row, read once per query tile.
 //
 // What the design does about it:
 //   * padding is most of the payload at real scale (shards of ~26 docs
 //     padded to 256 rows): the sum kernels never read it — a warp owns
-//     one slot and walks only its real rows [row_start, row_start +
-//     count), with the per-slot sum of the segment-sum kernel of the
-//     same mode (asym_tile::slot_sum, hamming_tile::slot_sum).  So a
-//     slot's sum depends only on its own rows in a fixed order, and
-//     three properties hold by construction, bit for bit: group launch
-//     == per-shard launch, this kernel == the segment sum over the same
-//     slot map (the streamed schedule), and run to run.  Empty slots
-//     give exact zeros;
+//     one slot at a time and walks only its real rows [row_start,
+//     row_start + count), with the per-slot sum of the segment-sum
+//     kernel of the same mode (asym_tile::lut_slot_sum,
+//     hamming_tile::slot_sum).  So a slot's sum depends only on its own
+//     rows in a fixed order, and three properties hold by construction,
+//     bit for bit: group launch == per-shard launch, this kernel == the
+//     segment sum over the same slot map (the streamed schedule), and
+//     run to run.  Empty slots give exact zeros;
+//   * the asym sum shares asym.cu's segment-sum block
+//     (asym_tile::lut_segsum_block): the projection and the 4-bit
+//     lookup tables built once per block, one wave of blocks whose
+//     warps walk the slots in a fixed stride, and a query tile's
+//     scoring templated on its live queries (at B = 12 the second tile
+//     scores 4 queries, not 8);
 //   * the top-k kernel reads a row's signature only where its slot is
 //     real.  For K <= 32 (the served k = 10) a warp owns a payload
 //     block: lane l tests rows l, l+32, ... against the slot map, a
@@ -56,12 +63,12 @@
 //     are never scored, stored or sorted.  For K > 32 the block sorts in shared
 //     memory only the rows up to the block's last real row (rounded up
 //     to a power of two at least K), masked rows at -inf;
-//   * a block stages its TB-query projection (asym) or TB query
-//     signatures and value table (sym) once into shared memory and
-//     serves SLOTS_PER_WARP slots per warp (sum) or TOPK_PER_WARP
-//     payload blocks per warp (top-k).
-// The TPU's 2-slot DMA ring is a data-movement schedule; this first
-// port reads signatures straight from device memory (no cp.async/TMA
+//   * a top-k block stages its TB-query projection once into shared
+//     memory and serves TOPK_PER_WARP payload blocks per warp; a sym
+//     sum block stages its TB query signatures and value table and
+//     serves SLOTS_PER_WARP slots per warp.
+// The TPU's 2-slot DMA ring is a data-movement schedule; this port
+// reads signatures straight from device memory (no cp.async/TMA
 // pipeline).
 //
 // The entry points take plain pointers and return cudaGetLastError()
@@ -74,8 +81,7 @@ namespace {
 
 using namespace asym_tile;
 
-constexpr int SLOTS_PER_WARP = 4;           // slots per warp, sum
-constexpr int SLOTS_PER_BLOCK = WARPS * SLOTS_PER_WARP;
+constexpr int SLOTS_PER_WARP = 4;           // slots per warp, Hamming sum
 constexpr int TOPK_PER_WARP = 4;            // payload blocks per warp, top-k
 constexpr int TOPK_BLOCKS = WARPS * TOPK_PER_WARP;
 
@@ -89,27 +95,14 @@ megascan_segsum_kernel(const float* __restrict__ q,
                        int n_rows, int W, int S, float scale,
                        float temperature) {
   extern __shared__ float4 smem4[];
-  float* proj_t = reinterpret_cast<float*>(smem4);
-  float* q_s = proj_t + (size_t)bits * TB;
-  const int q0 = blockIdx.y * TB;
-  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
-  const int nb = min(TB, B - q0);
-  const int nwords = bits / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int s_first = blockIdx.x * SLOTS_PER_BLOCK + warp * SLOTS_PER_WARP;
-  for (int i = 0; i < SLOTS_PER_WARP; ++i) {
-    const int s = s_first + i;
-    if (s >= S) break;                       // uniform across the warp
-    const int lo = max(0, row_start[s]);
-    const int hi = (int)min((long long)n_rows,
-                            (long long)row_start[s] + row_count[s]);
-    float acc[TB];
-    slot_sum(sig, lo, hi, W, nwords, smem4, scale, temperature, acc);
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-      if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];
-  }
+  lut_segsum_block(
+      q, planes, sig, B, dim, bits, W, S, scale, temperature,
+      [row_start, row_count, n_rows](int s, int& lo, int& hi) {
+        lo = max(0, row_start[s]);
+        hi = (int)min((long long)n_rows,
+                      (long long)row_start[s] + row_count[s]);
+      },
+      out, reinterpret_cast<float*>(smem4));
 }
 
 // Top-k, K <= WARP_K: warp w selects payload blocks blockIdx.x *
@@ -229,17 +222,28 @@ hamming_megascan_segsum_kernel(const uint32_t* __restrict__ q,
 
 extern "C" {
 
+// Blocks along x of a sum launch over S slots for B queries (the grid
+// is that by ceil(B / TB)); a negative CUDA error if the kernel cannot
+// take the shared memory (asym_tile.cuh's lut_smem_bytes).
+int megascan_segsum_grid_x(int bits, int dim, int S, int B) {
+  const size_t smem = lut_smem_bytes(bits, dim);
+  cudaError_t err = prepare(megascan_segsum_kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return lut_grid_x(megascan_segsum_kernel, smem, S, (B + TB - 1) / TB);
+}
+
 int megascan_segsum_launch(const float* q, const float* planes,
                            const uint32_t* sig, const int* row_start,
                            const int* row_count, float* out, int B, int dim,
                            int bits, int n_rows, int W, int S, float scale,
                            float temperature, void* stream) {
   cudaGetLastError();  // clear a stale error so the code below is ours
-  const size_t smem = smem_bytes(bits, dim, 0);
+  const size_t smem = lut_smem_bytes(bits, dim);
   cudaError_t err = prepare(megascan_segsum_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + SLOTS_PER_BLOCK - 1) / SLOTS_PER_BLOCK,
-                  (B + TB - 1) / TB);
+  const dim3 grid(
+      lut_grid_x(megascan_segsum_kernel, smem, S, (B + TB - 1) / TB),
+      (B + TB - 1) / TB);
   megascan_segsum_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, planes, sig, row_start, row_count, out, B, dim, bits, n_rows, W, S,
       scale, temperature);

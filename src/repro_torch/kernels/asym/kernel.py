@@ -7,9 +7,12 @@
     the kernel.
   * ``asym_segment_sum_kernel`` replaces
     ``kernels/asym/kernel.py::asym_segment_sum_kernel``: per-segment
-    sums of the same values over CSR-sorted rows, [B, S] float32; the
-    [B, M] intermediate never reaches device memory and the sum is
-    bitwise deterministic (no float atomics).
+    sums of the same values over CSR-sorted rows, [B, S] float32,
+    scored by 4-bit table lookup (``testing.lut_segment_sums`` is the
+    same arithmetic in PyTorch); the [B, M] intermediate never reaches
+    device memory and the sum is bitwise deterministic (no float
+    atomics).  Its tables take ``bits * 128`` bytes of shared memory a
+    block: a ``bits`` whose block does not fit raises.
   * ``asym_topk_kernel`` replaces
     ``kernels/asym/kernel.py::asym_topk_kernel``: per tile of
     ``topk_tile(k)`` docs, each query's k best (value, global doc
@@ -56,6 +59,10 @@ def _lib() -> ctypes.CDLL:
         lib.asym_topk_warp_k.restype = _I
         lib.asym_smem_limit.argtypes = []
         lib.asym_smem_limit.restype = _I
+        lib.asym_lut_smem.argtypes = [_I, _I]
+        lib.asym_lut_smem.restype = ctypes.c_size_t
+        lib.asym_segsum_grid_x.argtypes = [_I, _I, _I, _I]
+        lib.asym_segsum_grid_x.restype = _I
         lib._asym_typed = True
     return lib
 
@@ -111,6 +118,35 @@ def _check_smem(bits: int, dim: int, tm: int, k: int, what: str) -> None:
             f"bytes")
 
 
+def check_lut_smem(bits: int, dim: int, what: str) -> None:
+    """Raise if a segment-sum block's shared memory (``asym_tile.cuh``,
+    shared by rows 2 and 7: the projection, the query tile and the 4-bit
+    lookup tables) does not fit this device."""
+    lib = _lib()
+    smem = lib.asym_lut_smem(bits, dim)
+    limit = lib.asym_smem_limit()
+    if smem > limit:
+        raise ValueError(
+            f"{what} needs {smem} bytes of shared memory per block for its "
+            f"lookup tables at bits={bits}, dim={dim}, over this device's "
+            f"limit of {limit} bytes")
+
+
+def launch_shape(grid_x, bits: int, dim: int, s: int, b: int) -> dict:
+    """A segment-sum launch's shared memory per block and grid, from the
+    library's ``grid_x(bits, dim, S, B)``."""
+    x = grid_x(bits, dim, s, b)
+    if x < 0:
+        raise RuntimeError(f"segment-sum grid: CUDA error {-x}")
+    return dict(smem_bytes=int(_lib().asym_lut_smem(bits, dim)),
+                grid=(x, -(-b // _lib().asym_query_tile())))
+
+
+def segsum_launch_shape(bits: int, dim: int, s: int, b: int) -> dict:
+    """``asym_segment_sum_kernel``'s launch at these widths."""
+    return launch_shape(_lib().asym_segsum_grid_x, bits, dim, s, b)
+
+
 def asym_similarity_kernel(q: torch.Tensor, planes: torch.Tensor,
                            db: torch.Tensor, bits: int, *,
                            temperature: float = 1.0) -> torch.Tensor:
@@ -152,6 +188,7 @@ def asym_segment_sum_kernel(q: torch.Tensor, planes: torch.Tensor,
     if b == 0 or s == 0:
         return out
     _check_grid(b)
+    check_lut_smem(bits, dim, "the segment sum")
     rc = _lib().asym_exp_segment_sum_launch(
         q.data_ptr(), planes.data_ptr(), db_sorted.data_ptr(),
         seg_offsets.data_ptr(), out.data_ptr(),

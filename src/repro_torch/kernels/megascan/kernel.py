@@ -7,8 +7,11 @@ it).
     [B, S] float32 per-(query, shard-slot) sums of exp(beta *
     asym-cos) over a block-aligned payload, one launch; slot s owns the
     real rows ``[row_start[s], row_start[s] + row_count[s])`` and no
-    padding row is read.  Bitwise equal to the slice-1 segment sum over
-    the same rows, and deterministic (no float atomics).
+    padding row is read.  Scored by 4-bit table lookup with the
+    segment sum's per-slot sum (``csrc/asym_tile.cuh``), so bitwise
+    equal to the slice-1 segment sum over the same rows, and
+    deterministic (no float atomics); a ``bits`` whose tables do not fit
+    a block's shared memory raises.
   * ``asym_megascan_topk_kernel`` replaces both
     ``asym_megascan_topk_kernel`` and ``asym_megascan_topk_db_kernel``
     (one function on two TPU schedules): per payload block of ``tm``
@@ -38,7 +41,8 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.asym.kernel import (_F, _I, _P, _check,
-                                             _check_grid, _check_smem, _scale)
+                                             _check_grid, _check_smem, _scale,
+                                             check_lut_smem, launch_shape)
 from repro_torch.kernels.hamming.kernel import check_bits, check_operands
 from repro_torch.kernels.hamming.ref import value_table
 
@@ -56,6 +60,8 @@ def _lib() -> ctypes.CDLL:
         lib.hamming_megascan_segsum_launch.argtypes = [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.hamming_megascan_segsum_launch.restype = _I
+        lib.megascan_segsum_grid_x.argtypes = [_I, _I, _I, _I]
+        lib.megascan_segsum_grid_x.restype = _I
         lib._megascan_typed = True
     return lib
 
@@ -84,6 +90,7 @@ def asym_megascan_segsum_kernel(q: torch.Tensor, planes: torch.Tensor,
     if b == 0 or s == 0:
         return out
     _check_grid(b)
+    check_lut_smem(bits, dim, "the megascan sum")
     rc = _lib().megascan_segsum_launch(
         q.data_ptr(), planes.data_ptr(), sig.data_ptr(), row_start.data_ptr(),
         row_count.data_ptr(), out.data_ptr(), b, dim, bits, n_rows, w, s,
@@ -94,6 +101,11 @@ def asym_megascan_segsum_kernel(q: torch.Tensor, planes: torch.Tensor,
 
 
 asym_megascan_segsum_kernel.launches = 0
+
+
+def segsum_launch_shape(bits: int, dim: int, s: int, b: int) -> dict:
+    """``asym_megascan_segsum_kernel``'s launch at these widths."""
+    return launch_shape(_lib().megascan_segsum_grid_x, bits, dim, s, b)
 
 
 def asym_megascan_topk_kernel(q: torch.Tensor, planes: torch.Tensor,

@@ -366,17 +366,24 @@ class MegascanSpec:
     def _flops(self, payload: MegascanPayload) -> int:
         """Operations of the scan as the CUDA kernels do it, over the
         real rows (no padding row is scored) with one add per (query,
-        real row).  asym: the fp32 query projection and the +-1 dot;
-        hamming: an XOR, a popcount and an add per (query, real row,
-        word).  The reference's count adds its one-hot reduction over
-        the padded payload, which has no counterpart here."""
+        real row).  asym sum: the fp32 query projection, the 4-bit
+        lookup tables (16 entries of 3 adds per query and chunk) and one
+        table add per (query, real row, chunk), bits/4 of them; asym
+        ranked: the projection and the +-1 dot, 2 * bits per (query,
+        real row); hamming: an XOR, a popcount and an add per (query,
+        real row, word).  The reference's count adds its one-hot
+        reduction over the padded payload, which has no counterpart
+        here."""
         b = self.n_queries
         bits = int(self.index.bits)
         rows = payload.real_rows
         if self.mode == "hamming":
             return 3 * b * rows * int(payload.sig.shape[1]) + b * rows
-        dim = int(self.planes.shape[1])
-        return 2 * b * bits * dim + 2 * b * rows * bits + b * rows
+        proj = 2 * b * bits * int(self.planes.shape[1])
+        if self.ranked_k is not None:
+            return proj + 2 * b * rows * bits + b * rows
+        chunks = bits // 4
+        return proj + 48 * b * chunks + b * rows * chunks + b * rows
 
     def run_group(self, shard_ids: Sequence[int],
                   queries_of: Dict[int, Iterable[int]]) -> dict:

@@ -1,4 +1,5 @@
-"""Checks and inputs shared by the port's tests and ``chip_smoke.py``."""
+"""Checks, inputs and models shared by the port's tests and
+``chip_smoke.py``."""
 from __future__ import annotations
 
 import math
@@ -91,10 +92,11 @@ def block_slots(counts, tm: int, n_valid: int, scattered: bool,
     return slots
 
 
-def ragged_segments(counts, dim: int, bits: int, seed: int, dup: bool = False):
+def ragged_segments(counts, dim: int, bits: int, seed: int, dup: bool = False,
+                    n_queries: int = 5):
     """Per-shard (packed uint32 signatures, doc ids) with globally unique
-    ids for shards of ``counts`` docs, 5 query vectors and the planes,
-    all numpy and made from ``seed``.  ``dup`` repeats every signature
+    ids for shards of ``counts`` docs, ``n_queries`` query vectors and
+    the planes, all numpy and made from ``seed``.  ``dup`` repeats every signature
     row in place, so ranked values tie exactly."""
     rng = np.random.default_rng(seed)
     planes = lsh.hyperplanes(lsh.LSHConfig(bits=bits), dim, "cpu")
@@ -107,7 +109,8 @@ def ragged_segments(counts, dim: int, bits: int, seed: int, dup: bool = False):
             torch.from_numpy(x), planes)))
         segs.append((sig, np.arange(base, base + c, dtype=np.int64)))
         base += c
-    return segs, rng.normal(size=(5, dim)).astype(np.float32), planes.numpy()
+    return (segs, rng.normal(size=(n_queries, dim)).astype(np.float32),
+            planes.numpy())
 
 
 def sign_clear(vecs, planes, margin: float = 1e-4) -> np.ndarray:
@@ -153,3 +156,101 @@ def assert_assign_away_from_ties(ids: torch.Tensor, x: torch.Tensor,
     assert_ids_equal_away_from_ties(got, i, v, what)
     vd = v.double()
     return int(((vd[:, 0] - vd[:, 1]).abs() > 1e-4 * vd[:, 1].abs()).sum())
+
+
+# ----------------------------------------------------------------------
+# the table-lookup segment sums of rows 2 and 7, in the kernels' order
+# ----------------------------------------------------------------------
+LUT_BITS = 4   # signature bits per table lookup (asym_tile.cuh)
+WARP = 32
+
+
+def lut_tables(proj: torch.Tensor) -> torch.Tensor:
+    """[B, bits] projections -> [bits/4, B, 16] tables: entry n of chunk
+    c is the sum over i < 4 of (bit i of n ? +1 : -1) * proj[:, 4c + i],
+    added i = 0 first, as ``asym_tile::build_tables`` adds them."""
+    b, bits = proj.shape
+    p = proj.reshape(b, bits // LUT_BITS, LUT_BITS).permute(1, 0, 2)
+    n = torch.arange(16, device=proj.device)
+    sign = [torch.where((n >> i) & 1 == 1, 1.0, -1.0).to(proj.dtype)
+            for i in range(LUT_BITS)]
+    t = p[..., 0:1] * sign[0]
+    for i in range(1, LUT_BITS):
+        t = t + p[..., i:i + 1] * sign[i]
+    return t
+
+
+def lut_exp_sim_rows(q_unit: torch.Tensor, db: torch.Tensor,
+                     planes: torch.Tensor, bits: int,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """[B, M] exp(temperature * clip(dot * scale, -1, 1)) with each dot
+    a sum of table entries, one per 4-bit chunk of the row's signature,
+    chunks in ascending order from 0.0 (``asym_tile::lut_dots``).  The
+    exp runs over fixed-shape row blocks (``ROW_BLOCK``, as the plain
+    versions do), so a row's value depends on that row alone."""
+    from repro_torch.kernels.asym.ref import ROW_BLOCK, _scale
+    proj = q_unit @ planes.T                                 # [B, bits]
+    tables = lut_tables(proj)                                # [C, B, 16]
+    words = db[:, :bits // 32].to(torch.int64)
+    shifts = LUT_BITS * torch.arange(32 // LUT_BITS, device=db.device)
+    nib = ((words[:, :, None] >> shifts) & 15).reshape(db.shape[0],
+                                                       bits // LUT_BITS)
+    dot = proj.new_zeros((proj.shape[0], db.shape[0]))
+    for c in range(tables.shape[0]):
+        dot = dot + tables[c][:, nib[:, c]]
+    cos = torch.clamp(dot * _scale(bits), -1.0, 1.0)
+    rows = ROW_BLOCK[db.device.type]
+    out = torch.empty_like(cos)
+    for lo in range(0, cos.shape[1], rows):
+        block = cos[:, lo:lo + rows]
+        n = block.shape[1]
+        if n < rows:
+            block = torch.cat([block, block.new_zeros((block.shape[0],
+                                                       rows - n))], 1)
+        out[:, lo:lo + n] = torch.exp(temperature * block)[:, :n]
+    return out
+
+
+def warp_slot_sums(values: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor) -> torch.Tensor:
+    """[B, R] values -> [B, S] per-slot sums as one warp takes them
+    (``asym_tile::lut_slot_sum``): lane l adds the slot's values l,
+    l + 32, ... in order from 0.0, then a fixed xor-butterfly (offsets
+    16, 8, 4, 2, 1) adds the 32 partials."""
+    starts = starts.to(torch.int64)
+    counts = counts.to(torch.int64)
+    b, s = values.shape[0], counts.shape[0]
+    lanes = torch.arange(WARP, device=values.device)
+    part = values.new_zeros((b, s, WARP))
+    rounds = -(-int(counts.max()) // WARP) if s else 0
+    for r in range(rounds):
+        off = r * WARP + lanes
+        live = off[None, :] < counts[:, None]                # [S, 32]
+        cols = torch.where(live, starts[:, None] + off[None, :], 0)
+        part = part + torch.where(live, values[:, cols], 0.0)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., lanes ^ off]
+    return part[..., 0]
+
+
+def lut_segment_sums(query_vecs: torch.Tensor, db: torch.Tensor,
+                     planes: torch.Tensor, bits: int,
+                     starts: torch.Tensor, counts: torch.Tensor,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """The CPU model of rows 2 and 7's arithmetic: [B, S] float32 sums
+    of the table-lookup exp-similarity (``lut_exp_sim_rows``) over slot
+    s's rows ``db[starts[s]:starts[s] + counts[s]]``, summed per slot as
+    one warp does (``warp_slot_sums``).  Query rows are unit-normalised
+    as the wrappers do; only the slots' rows are read."""
+    from repro_torch.kernels.asym.ref import _unit
+    starts = starts.to(torch.int64)
+    counts = counts.to(torch.int64)
+    first = torch.cumsum(counts, 0) - counts
+    within = (torch.arange(int(counts.sum()), device=db.device)
+              - torch.repeat_interleave(first, counts))
+    rows = torch.repeat_interleave(starts, counts) + within
+    q = query_vecs.to(torch.float32)
+    vals = lut_exp_sim_rows(_unit(q if q.dim() == 2 else q[None, :]),
+                            db[rows], planes.to(torch.float32), bits,
+                            temperature)
+    return warp_slot_sums(vals, first, counts)

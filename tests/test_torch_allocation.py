@@ -128,6 +128,31 @@ def test_spherical_kmeans_draws_its_own_init():
     assert 0 <= a1.min() and a1.max() < 6
 
 
+def test_update_equals_a_loop_over_the_sorted_rows():
+    """The centroid update's sums are, bit for bit, each cluster's rows
+    added one after another in row order from 0.0; the counts exact; a
+    dead cluster takes the reference's (1, ..., 1) direction."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(600, 8)).astype(np.float32) * 30)
+    assign = torch.from_numpy(rng.integers(0, 40, 600))
+    assign[assign == 7] = 8                          # cluster 7 is dead
+    sums, counts = talloc.cluster_sums(x, assign, 41)   # so is 40
+    xs, a = x.numpy(), assign.numpy()
+    for c in range(41):
+        want = np.zeros(8, np.float32)
+        for i in np.nonzero(a == c)[0]:
+            want = want + xs[i]
+        assert np.array_equal(sums[c].numpy(), want)
+        assert counts[c] == (a == c).sum()
+    cent = talloc._update(x, assign, 41)
+    dead = torch.full((8,), 8 ** -0.5)
+    torch.testing.assert_close(cent[7], dead, rtol=0, atol=1e-7)
+    torch.testing.assert_close(cent[40], dead, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(cent[8].numpy(),
+                               sums[8].numpy() / np.linalg.norm(sums[8]),
+                               rtol=1e-6)
+
+
 def test_spherical_kmeans_callback_follows_each_assignment(monkeypatch):
     """``callback(i)`` runs after every assignment: 0 for the initial one,
     then once per iteration, and assign is called exactly as often."""

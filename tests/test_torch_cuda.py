@@ -51,6 +51,11 @@ def _setup(b, m, dim, bits, seed, device, dup=False):
     (1, 7, 3, 24, 128, 1.0), (5, 613, 37, 48, 128, 8.0),
     (9, 300, 128, 32, 64, 4.0), (3, 1000, 5, 48, 256, 8.0),
     (48, 20000, 800, 64, 256, 8.0),
+    # partly filled query tiles and bits 512 (row 2's table lookup);
+    # dim 30 takes the projection's 4-byte loads
+    (12, 4000, 150, 64, 256, 8.0), (1, 2000, 77, 64, 512, 8.0),
+    (9, 3000, 100, 48, 512, 4.0), (12, 700, 20, 64, 512, 1.0),
+    (12, 900, 40, 30, 96, 8.0),
 ])
 def test_cuda_kernels_match_plain(cuda_device, b, m, s, dim, bits, temp):
     rng, q, planes, db = _setup(b, m, dim, bits, b + m, cuda_device)
@@ -149,40 +154,49 @@ def test_cuda_topk_matches_plain(cuda_device, b, m, k, dim, bits, temp):
 
 
 RAGGED = (13, 8, 1, 0, 27, 64, 5)
+# slots of 0, 1, 26 (the serving size), 33 and 300 rows
+SLOT_SIZES = (0, 1, 26, 33, 300, 26, 1, 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("counts,tm,dup", [
-    (RAGGED, 8, False), (RAGGED, 16, False), ((300, 40, 9), 256, False),
-    (RAGGED, 16, True),
+@pytest.mark.parametrize("counts,tm,dup,b,bits", [
+    (RAGGED, 8, False, 5, 64), (RAGGED, 16, False, 5, 64),
+    ((300, 40, 9), 256, False, 5, 64), (RAGGED, 16, True, 5, 64),
+    # row 7's table lookup: partly filled query tiles, bits 512
+    (SLOT_SIZES, 32, False, 1, 256), (SLOT_SIZES, 32, False, 9, 512),
+    (SLOT_SIZES, 256, False, 12, 256), (SLOT_SIZES * 40, 32, False, 32, 256),
+    (SLOT_SIZES, 64, True, 12, 512),
 ])
 def test_cuda_megascan_matches_plain_and_is_bitwise(cuda_device, counts, tm,
-                                                    dup):
+                                                    dup, b, bits):
     from repro_torch.kernels.megascan import kernel as mker
     from repro_torch.kernels.megascan import ops as mops
     from repro_torch.kernels.megascan import ref as mref
-    segs, q, planes = ragged_segments(counts, 16, 64, tm + len(counts), dup)
+    segs, q, planes = ragged_segments(counts, 16, bits, tm + len(counts), dup,
+                                      n_queries=b)
     pay = mops.build_payload(segs, tm=tm, device=cuda_device)
     n_sum = mker.asym_megascan_segsum_kernel.launches
     n_top = mker.asym_megascan_topk_kernel.launches
-    got = mops.megascan_segment_sums(pay, q, planes, 64, temperature=4.0)
+    got = mops.megascan_segment_sums(pay, q, planes, bits, temperature=4.0)
     assert np.array_equal(got, mops.megascan_segment_sums(
-        pay, q, planes, 64, temperature=4.0))            # run to run
-    streamed = mops.megascan_segment_sums(pay, q, planes, 64,
+        pay, q, planes, bits, temperature=4.0))          # run to run
+    streamed = mops.megascan_segment_sums(pay, q, planes, bits,
                                           temperature=4.0,
                                           double_buffer=False)
     assert np.array_equal(got, streamed)                  # schedules
     qn = tops._prep_queries(torch.from_numpy(q).to(cuda_device))
     tp = torch.from_numpy(planes).to(cuda_device)
-    want = mref.asym_megascan_segsum_ref(qn, pay.sig, tp, 64, pay.row_start,
-                                         pay.row_count, 4.0)
+    want = mref.asym_megascan_segsum_ref(qn, pay.sig, tp, bits,
+                                         pay.row_start, pay.row_count, 4.0)
     np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-4)
     assert (got[:, np.asarray(counts) == 0] == 0).all()
-    ids, vals = mops.megascan_topk(pay, q, planes, 64, 5, temperature=4.0)
-    ids2, vals2 = mops.megascan_topk(pay, q, planes, 64, 5, temperature=4.0)
+    ids, vals = mops.megascan_topk(pay, q, planes, bits, 5, temperature=4.0)
+    ids2, vals2 = mops.megascan_topk(pay, q, planes, bits, 5,
+                                     temperature=4.0)
     assert np.array_equal(ids, ids2) and np.array_equal(vals, vals2)
     cpu = mops.build_payload(segs, tm=tm, device="cpu")
-    rids, rvals = mops.megascan_topk(cpu, q, planes, 64, 5, temperature=4.0)
+    rids, rvals = mops.megascan_topk(cpu, q, planes, bits, 5,
+                                     temperature=4.0)
     finite = np.isfinite(rvals)
     assert np.array_equal(np.isfinite(vals), finite)
     np.testing.assert_allclose(vals[finite], rvals[finite], rtol=1e-4)
@@ -193,14 +207,37 @@ def test_cuda_megascan_matches_plain_and_is_bitwise(cuda_device, counts, tm,
     assert mker.asym_megascan_segsum_kernel.launches == n_sum + 2
     assert mker.asym_megascan_topk_kernel.launches == n_top + 2
     # group == single-shard payload, bit for bit, in both modes
-    for s, seg in enumerate(segs):
+    for s, seg in enumerate(segs[:16]):
         one = mops.build_payload([seg], tm=tm, device=cuda_device)
-        single = mops.megascan_segment_sums(one, q, planes, 64,
+        single = mops.megascan_segment_sums(one, q, planes, bits,
                                             temperature=4.0)
         assert np.array_equal(got[:, s], single[:, 0])
-        i1, v1 = mops.megascan_topk(one, q, planes, 64, 5, temperature=4.0)
+        i1, v1 = mops.megascan_topk(one, q, planes, bits, 5, temperature=4.0)
         assert np.array_equal(ids[:, s], i1[:, 0])
         assert np.array_equal(vals[:, s], v1[:, 0])
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sums_refuse_tables_that_do_not_fit(cuda_device):
+    """Rows 2 and 7 raise, naming the bytes, where a block's lookup
+    tables do not fit the device's shared memory (bits 2048: 320 KB)."""
+    from repro_torch.kernels.megascan import kernel as mker
+    _, q, planes, db = _setup(3, 50, 16, 2048, 0, cuda_device)
+    qn = tops._prep_queries(q)
+    offs = torch.tensor([0, 20, 50], dtype=torch.int32, device=cuda_device)
+    n = (tkernel.asym_segment_sum_kernel.launches,
+         mker.asym_megascan_segsum_kernel.launches)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        tkernel.asym_segment_sum_kernel(qn, planes, db, offs, 2048)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        mker.asym_megascan_segsum_kernel(qn, planes, db, offs[:2].contiguous(),
+                                         offs[1:].contiguous(), 2048)
+    assert n == (tkernel.asym_segment_sum_kernel.launches,
+                 mker.asym_megascan_segsum_kernel.launches)
+    # the CPU route takes any size
+    cpu = tops.asym_exp_segment_sum_csr(q.cpu(), db.cpu(), planes.cpu(), 2048,
+                                        offs.cpu())
+    assert cpu.shape == (3, 2) and bool(torch.isfinite(cpu).all())
 
 
 def _hold_candidates(got, again, exact, plain, what):
@@ -541,6 +578,28 @@ def test_cuda_train_matches_cpu_on_injected_draws(cuda_device):
     for g, c in zip(gpu, cpu):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_update_is_deterministic(cuda_device):
+    """The centroid update on 2^16 x 64 rows into 1000 clusters: two CUDA
+    runs give the same bits, and the cluster sums are the CPU route's,
+    bit for bit (each cluster's rows added in row order, no atomics)."""
+    from repro_torch.core import allocation
+    rng = np.random.default_rng(16)
+    x = _unit_rows(rng, 1 << 16, 64, cuda_device)
+    assign = torch.from_numpy(rng.integers(0, 1000, 1 << 16)).to(cuda_device)
+    assign[assign == 3] = 4                          # a dead cluster
+    first = allocation._update(x, assign, 1000)
+    second = allocation._update(x, assign, 1000)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    sums, counts = allocation.cluster_sums(x, assign, 1000)
+    cpu_sums, cpu_counts = allocation.cluster_sums(x.cpu(), assign.cpu(), 1000)
+    assert torch.equal(sums.cpu(), cpu_sums)
+    assert torch.equal(counts.cpu(), cpu_counts) and int(counts[3]) == 0
+    torch.testing.assert_close(first.cpu(), allocation._update(
+        x.cpu(), assign.cpu(), 1000), rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda

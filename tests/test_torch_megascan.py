@@ -428,7 +428,14 @@ def test_executor_megakernel_route_bitwise_parity(pair, ranked):
         mega = ex.map_shard_batch(corpus, plans, fns, megakernel=True)
         assert spec.stats["group_launches"] == 1
         assert ex.stats["megascan_jobs"] == 1
-        assert ex.last_job["megascan"]["ranked"] == ranked
+        rec = ex.last_job["megascan"]
+        assert rec["ranked"] == ranked
+        # the sum scores by 4-bit table lookup, the top-k bit by bit
+        b, rows, bits = len(QUERIES), rec["real_rows"], port.bits
+        per_row = 2 * bits if ranked else bits // 4
+        assert rec["flops"] == (2 * b * bits * spec.planes.shape[1]
+                                + b * rows * (per_row + 1)
+                                + (0 if ranked else 48 * b * (bits // 4)))
         per = ex.map_shard_batch(corpus, plans, fns, megakernel=False)
         assert spec.stats["shard_launches"] > 0
     _scan_dicts_equal(mega, per)
