@@ -57,7 +57,8 @@ Phases, each of which raises (exit code not 0) on any failure:
                 beside it).  Rows 2 and 7 (table-lookup scoring) also
                 print their shared memory per block, their grid and the
                 largest gap to ``testing.lut_segment_sums``, the same
-                arithmetic in PyTorch on the card.  The Hamming
+                arithmetic in PyTorch on the card; row 1 prints its
+                launch too.  The Hamming
                 kernels' bound takes their popcounts over the card's
                 popcount rate instead (``popc_rate``: SMs x 16 per
                 clock, compute capability 9.0, x the max SM clock).
@@ -93,7 +94,11 @@ Phases, each of which raises (exit code not 0) on any failure:
                 with phase 7's plans: one group launch, against plain,
                 bitwise equal to the per-shard route on phase 7's
                 sample and to the streamed schedule; both routes timed
-                over 5 alternating runs.
+                over 5 alternating runs.  Row 8 on the full fleet equals
+                ``testing.hamming_warp_sums`` (its exact model) bit for
+                bit, prints its launch (grid, blocks per SM, shared
+                memory a block) and is timed once more with the L2
+                cache flushed before each launch (``cold_device_ms``).
  11. sym top-k — ``topk_doc_similarities_batch`` on the sym index, k=10,
                 48 queries, every doc: ids and values equal the plain
                 path's exactly, ties included; rows 4 and 5 timed at
@@ -193,6 +198,7 @@ BUILD_BATCH = 48   # queries served by the offline-build phase
 # Programming Guide, arithmetic instruction throughput table)
 POPC_PER_CLOCK_PER_SM = 16
 SYM_ROUTE_RUNS = 5  # host-clock runs of each Hamming megascan route
+FLUSH_BYTES = 128 << 20  # written between launches to time row 8 cold
 RAGGED = (13, 8, 1, 0, 27, 64, 5)   # the reference's megascan shard census
 MEGA_SHAPES = [  # (shard doc counts, tm, k, duplicated rows); dim 16, bits 64
     (RAGGED, 8, 5, False), (RAGGED, 16, 5, False), ((300, 40, 9), 256, 7, False),
@@ -272,6 +278,28 @@ def timed(fn, reps: int = 25, warmup: int = 3) -> dict:
     ms = time_ms(fn, reps=reps, warmup=warmup)
     launches = max(1, min(100, int(20.0 / max(ms, 1e-3))))
     return dict(ms=ms, device_ms=graph_ms(fn, launches=launches, reps=reps))
+
+
+def cold_ms(fn, reps: int = 25) -> float:
+    """Median CUDA-event time of one call of ``fn`` with the L2 cache
+    flushed before it: a FLUSH_BYTES write (over the card's 50 MB of
+    L2) runs ahead of each call, outside the events."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del flush
+    return float(np.median(times))
 
 
 def least_ops(b: int, m: int, bits: int, dim: int, per_row: int, *,
@@ -538,7 +566,7 @@ def kernel_phase_hamming(dev: torch.device) -> int:
     from repro_torch.kernels.megascan import kernel as mk
     from repro_torch.kernels.megascan import ops as mops
     from repro_torch.kernels.megascan import ref as mref
-    from repro_torch.testing import ragged_segments
+    from repro_torch.testing import hamming_warp_sums, ragged_segments
 
     def words(rng, n, w):
         return lsh.to_packed_tensor(
@@ -595,6 +623,9 @@ def kernel_phase_hamming(dev: torch.device) -> int:
             temperature=4.0), what)
         close(got, mref.hamming_megascan_segsum_ref(
             qsig, pay.sig, 64, pay.row_start, pay.row_count, 4.0), what)
+        if not torch.equal(got, hamming_warp_sums(
+                qsig, pay.sig, pay.row_start, pay.row_count, 64, 4.0)):
+            raise AssertionError(f"{what}: not bitwise its exact model")
         if bool((got[:, torch.from_numpy(pay.counts == 0).to(dev)] != 0).any()):
             raise AssertionError(f"{what}: an empty slot is not exactly zero")
         sums = mops.megascan_segment_sums(pay, qsig, None, 64, mode="hamming",
@@ -966,11 +997,15 @@ def serve_phase(dev: torch.device, args) -> "tuple[list, dict]":
          "similarity at the serving shapes")
     nbytes = 4.0 * (m * w + b * dim + bits * dim + b * m)
     bound_ms, bound_by = bound(least_ops(b, m, bits, dim, 3), nbytes)
+    launch = k.sim_launch_shape(bits, m, b)
+    log(f"   similarity launch: {launch}, 256 threads a block; max abs err "
+        f"against the plain version {err}")
     kernels.insert(0, dict(
         name="asym_exp_similarity", route="cuda",
         source="src/repro_torch/csrc/asym.cu",
         replaces="src/repro/kernels/asym/kernel.py:151",
         launches=launches["asym_exp_similarity"], max_abs_err=err,
+        launch=launch,
         **timed(lambda: k.asym_similarity_kernel(
             wq, planes, shard_sig, bits, temperature=beta)),
         plain_ms=time_ms(lambda: ref.asym_exp_similarity_ref(
@@ -1406,6 +1441,7 @@ def sym_megascan_phase(dev: torch.device, ctx: dict) -> list:
     from repro_torch.kernels.megascan import ops as mops
     from repro_torch.kernels.megascan import ref as mref
     from repro_torch.runtime.executor import ShardTaskExecutor
+    from repro_torch.testing import hamming_warp_sums
 
     corpus, index = ctx["corpus"], ctx["sym_index"]
     n_shards = corpus.n_shards
@@ -1474,21 +1510,36 @@ def sym_megascan_phase(dev: torch.device, ctx: dict) -> list:
         temperature=beta), "hamming megascan, full fleet")
     err = close(got, torch.from_numpy(plain).to(dev),
                 "hamming megascan, full fleet")
+    if not torch.equal(got, hamming_warp_sums(qsig, pay.sig, pay.row_start,
+                                              pay.row_count, bits, beta)):
+        raise AssertionError("hamming megascan, full fleet: not bitwise "
+                             "testing.hamming_warp_sums")
+    log(f"   hamming megascan, full fleet: bit for bit "
+        f"testing.hamming_warp_sums over {real} real rows")
     nbytes = 4.0 * (b * w + real * w + 2 * n_slots + (32 * w + 1) + b * n_slots)
     bound_ms, bound_by = popc_bound(b * real * w, nbytes, ctx["popc_rate"])
+    launch = mk.hamming_segsum_launch_shape(w, n_slots, b)
+    log(f"   hamming megascan launch: {launch}, 256 threads a block")
+
+    def call():
+        return mk.hamming_megascan_segsum_kernel(
+            qsig, pay.sig, pay.row_start, pay.row_count, bits,
+            temperature=beta)
+
     kr = dict(
         name="hamming_megascan_segsum", route="cuda",
         source="src/repro_torch/csrc/megascan.cu",
         replaces="src/repro/kernels/megascan/kernel.py:222",
-        launches=launches, max_abs_err=err,
-        **timed(lambda: mk.hamming_megascan_segsum_kernel(
-            qsig, pay.sig, pay.row_start, pay.row_count, bits,
-            temperature=beta)),
+        launches=launches, max_abs_err=err, launch=launch, **timed(call),
+        cold_device_ms=cold_ms(call),
         plain_ms=time_ms(lambda: mref.hamming_megascan_segsum_ref(
             qsig, pay.sig, bits, pay.row_start, pay.row_count, beta)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     log_kernel(kr, dict(B=b, real_rows=real, payload_rows=pay.n_rows,
                         S=n_slots, W=w, bits=bits))
+    log(f"   hamming_megascan_segsum with L2 flushed before each launch "
+        f"(a {FLUSH_BYTES >> 20} MB write): {kr['cold_device_ms']:.4f} ms "
+        f"(warm {kr['device_ms']:.4f} ms)")
     return [kr]
 
 

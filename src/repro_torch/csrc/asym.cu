@@ -34,15 +34,22 @@
 // (log2(TM) + 1) / 2 compare-exchanges, a barrier a stage.
 //
 // What the design does about it (shared device code in asym_tile.cuh):
-//   * one block holds a tile of TB queries; it computes their
-//     projection q . planes^T once, into shared memory, transposed to
-//     [bits][TB] so one signature bit's TB projections are two float4
-//     loads that every lane of a warp reads at the same address
-//     (a broadcast, no bank conflicts);
-//   * the similarity and the top-k: each lane owns one doc at a time,
+//   * one block holds a tile of TB queries and their projection
+//     q . planes^T in shared memory, transposed to [bits][TB] so one
+//     signature bit's TB projections are two float4 loads that every
+//     lane of a warp reads at the same address (a broadcast, no bank
+//     conflicts); the top-k and segment-sum blocks compute it
+//     themselves, the similarity's blocks copy it from a set-up kernel
+//     that computes each tile's once (asym_sim_project_kernel), so the
+//     blocks of a tile do not each repeat it;
+//   * the similarity and the top-k: each lane owns a doc at a time,
 //     unpacks its W words to +-1 in registers and keeps TB running dot
 //     products, so every shared load feeds four multiply-adds and the
-//     packed signature is read once per query tile;
+//     packed signature is read once per query tile; the similarity
+//     lane owns SIM_ROWS docs at a time (rows_dots), so each pair of
+//     broadcast projection loads feeds 8 * SIM_ROWS, and reads a doc's
+//     words 16 bytes at a time.  Its scores keep doc_dots' chain bit
+//     for bit: the top-k kernels are held to the oracle over them;
 //   * the segment sum: the block also builds, per query and 4-bit
 //     chunk, the 16 signed sums of the chunk's 4 projections (32 KB at
 //     bits 256, TB 8; build_tables), and a lane scores its doc with one
@@ -50,12 +57,14 @@
 //     table load and one add (lut_dots), about 2 + 2*nb instructions a
 //     chunk against 4 * 12 bit by bit; a query tile with nb < TB live
 //     queries costs nb, not TB (a template on nb);
-//   * a block amortises its projection over many docs: SIM_DOCS per
-//     thread in the similarity kernel, TOPK_TILES tiles in the top-k;
-//     the segment sum launches one wave of blocks (as many as fit on
-//     the card at once, lut_grid_x) whose warps walk the segments in a
-//     fixed stride, so the projection and the tables are built once per
-//     block rather than once per 32 segments;
+//   * a block amortises its set-up over many docs: TOPK_TILES tiles
+//     in the top-k; the similarity and the segment sum launch one wave
+//     of blocks (as many as fit on the card at once, sim_grid_x and
+//     lut_grid_x) whose threads walk the docs, or warps the segments,
+//     in a fixed stride, so the projection (and the tables) are staged
+//     once per block; the segment sums and the similarity's set-up
+//     project with 16-byte plane loads (lut_project, project_tile's
+//     bits);
 //   * the top-k gives each warp one tile; for K <= 32 (the served
 //     k = 10) the warp keeps each query's running top-K in registers
 //     (asym_tile::warp_topk: lane r holds rank r; the first 32 rows are
@@ -90,30 +99,71 @@ namespace {
 
 using namespace asym_tile;
 
-constexpr int SIM_DOCS = 4;                 // docs per thread, similarity
+constexpr int SIM_ROWS = 2;                 // rows per thread a step, similarity
+constexpr int SIM_THREADS = 256;            // threads per block, similarity
 constexpr int TOPK_TILES = WARPS;           // tiles per block, top-k
 
+// The similarity's set-up: block t projects query tile t once per
+// launch, rather than once per block of the row walk (lut_project:
+// project_tile's bits from 16-byte loads), and writes it out to
+// proj_g[t][bits][TB].
 __global__ void __launch_bounds__(THREADS)
-asym_sim_kernel(const float* __restrict__ q, const float* __restrict__ planes,
-                const uint32_t* __restrict__ db, float* __restrict__ out,
-                int B, int dim, int bits, int M, int W, float scale,
-                float temperature) {
+asym_sim_project_kernel(const float* __restrict__ q,
+                        const float* __restrict__ planes,
+                        float* __restrict__ proj_g, int B, int dim,
+                        int bits) {
   extern __shared__ float4 smem4[];
   float* proj_t = reinterpret_cast<float*>(smem4);
   float* q_s = proj_t + (size_t)bits * TB;
+  lut_project(q, planes, B, dim, bits, blockIdx.x * TB, proj_t, q_s);
+  float4* g4 = reinterpret_cast<float4*>(proj_g + (size_t)blockIdx.x * bits * TB);
+  for (int i = threadIdx.x; i < bits * TB / 4; i += blockDim.x)
+    g4[i] = smem4[i];
+}
+
+// Blocks walk the rows in a fixed stride: thread t of block x scores
+// rows x * SIM_THREADS * SIM_ROWS + r * SIM_THREADS + t, r < SIM_ROWS,
+// then the same gridDim.x * SIM_THREADS * SIM_ROWS further on, so a
+// warp's lanes hold consecutive rows and its stores are coalesced.  A
+// row's value does not depend on which thread scores it.  The block
+// copies its query tile's projection from proj_g (asym_sim_project_kernel)
+// with 16-byte loads.
+__global__ void __launch_bounds__(SIM_THREADS)
+asym_sim_kernel(const float* __restrict__ proj_g,
+                const uint32_t* __restrict__ db, float* __restrict__ out,
+                int B, int bits, int M, int W, float scale,
+                float temperature) {
+  extern __shared__ float4 smem4[];
   const int q0 = blockIdx.y * TB;
-  project_tile(q, planes, B, dim, bits, q0, proj_t, q_s);
+  const float4* g4 = reinterpret_cast<const float4*>(
+      proj_g + (size_t)blockIdx.y * bits * TB);
+  for (int i = threadIdx.x; i < bits * TB / 4; i += blockDim.x)
+    smem4[i] = __ldg(g4 + i);
+  __syncthreads();
   const int nb = min(TB, B - q0);
   const int nwords = bits / 32;
-  const size_t m0 = (size_t)blockIdx.x * THREADS * SIM_DOCS;
-  for (int r = 0; r < SIM_DOCS; ++r) {
-    const size_t m = m0 + (size_t)r * THREADS + threadIdx.x;
-    if (m >= (size_t)M) break;
-    float dot[TB];
-    doc_dots(db + m * W, nwords, smem4, dot);
+  const bool vec = (W & 3) == 0 && (nwords & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(db) & 15) == 0;
+  const size_t step = (size_t)gridDim.x * SIM_THREADS * SIM_ROWS;
+  for (size_t m0 = (size_t)blockIdx.x * SIM_THREADS * SIM_ROWS + threadIdx.x;
+       m0 < (size_t)M; m0 += step) {
+    size_t rows[SIM_ROWS];                   // a row past M scores row m0
 #pragma unroll
-    for (int b = 0; b < TB; ++b)
-      if (b < nb) out[(size_t)(q0 + b) * M + m] = exp_sim(dot[b], scale, temperature);
+    for (int r = 0; r < SIM_ROWS; ++r) {
+      const size_t m = m0 + (size_t)r * SIM_THREADS;
+      rows[r] = m < (size_t)M ? m : m0;
+    }
+    float dot[SIM_ROWS][TB];
+    rows_dots<SIM_ROWS>(db, rows, W, nwords, vec, smem4, dot);
+#pragma unroll
+    for (int r = 0; r < SIM_ROWS; ++r) {
+      const size_t m = m0 + (size_t)r * SIM_THREADS;
+      if (m >= (size_t)M) break;
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (b < nb)
+          out[(size_t)(q0 + b) * M + m] = exp_sim(dot[r][b], scale, temperature);
+    }
   }
 }
 
@@ -198,7 +248,20 @@ asym_topk_sort_kernel(const float* __restrict__ q,
   }
 }
 
-size_t sim_smem_bytes(int bits, int dim) { return smem_bytes(bits, dim, 0); }
+// Shared memory of a similarity block: the projection [bits][TB].
+size_t sim_smem_bytes(int bits) { return (size_t)bits * TB * sizeof(float); }
+
+// Blocks along x of a similarity launch over M rows and n_qtiles query
+// tiles: no more than one wave (as many blocks as fit on the card at
+// once), and as few as take the rows in the same number of strides, so
+// each block pays its projection for as many rows as it can.  Call
+// after prepare.
+int sim_grid_x(int M, int n_qtiles, size_t smem) {
+  const int wave = wave_blocks(asym_sim_kernel, SIM_THREADS, smem, n_qtiles);
+  const int need = (M + SIM_THREADS * SIM_ROWS - 1) / (SIM_THREADS * SIM_ROWS);
+  const int strides = (need + wave - 1) / wave;
+  return (need + strides - 1) / strides;
+}
 
 }  // namespace
 
@@ -218,18 +281,40 @@ int asym_smem_limit() { return smem_limit(); }
 // in shared memory.
 int asym_topk_warp_k() { return WARP_K; }
 
-int asym_exp_similarity_launch(const float* q, const float* planes,
-                               const uint32_t* db, float* out, int B, int dim,
-                               int bits, int M, int W, float scale,
-                               float temperature, void* stream) {
-  cudaGetLastError();  // clear a stale error so the code below is ours
-  const size_t smem = sim_smem_bytes(bits, dim);
+// Shared memory of one similarity block (row 1): the projection.
+size_t asym_sim_smem(int bits) { return sim_smem_bytes(bits); }
+
+// Blocks along x of a similarity launch over M rows for B queries (the
+// grid is that by ceil(B / TB)); a negative CUDA error if the kernel
+// cannot take the shared memory.
+int asym_sim_grid_x(int bits, int M, int B) {
+  const size_t smem = sim_smem_bytes(bits);
   cudaError_t err = prepare(asym_sim_kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return sim_grid_x(M, (B + TB - 1) / TB, smem);
+}
+
+// Row 1: the projection of each query tile into `proj` (ceil(B / TB) *
+// bits * TB floats of scratch, the wrapper's), then the [B, M] values.
+int asym_exp_similarity_launch(const float* q, const float* planes,
+                               const uint32_t* db, float* proj, float* out,
+                               int B, int dim, int bits, int M, int W,
+                               float scale, float temperature, void* stream) {
+  cudaGetLastError();  // clear a stale error so the code below is ours
+  const size_t psmem = smem_bytes(bits, dim, 0);
+  const size_t smem = sim_smem_bytes(bits);
+  cudaError_t err = prepare(asym_sim_project_kernel, psmem);
+  if (err == cudaSuccess) err = prepare(asym_sim_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + THREADS * SIM_DOCS - 1) / (THREADS * SIM_DOCS),
-                  (B + TB - 1) / TB);
-  asym_sim_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      q, planes, db, out, B, dim, bits, M, W, scale, temperature);
+  const int n_qtiles = (B + TB - 1) / TB;
+  asym_sim_project_kernel<<<n_qtiles, THREADS, psmem,
+                            (cudaStream_t)stream>>>(q, planes, proj, B, dim,
+                                                    bits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(sim_grid_x(M, n_qtiles, smem), n_qtiles);
+  asym_sim_kernel<<<grid, SIM_THREADS, smem, (cudaStream_t)stream>>>(
+      proj, db, out, B, bits, M, W, scale, temperature);
   return (int)cudaGetLastError();
 }
 

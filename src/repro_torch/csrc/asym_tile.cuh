@@ -4,7 +4,9 @@
 //     into shared memory, transposed to [bits][TB];
 //   * doc_dots / exp_sim: one row's +-1 dot products with the TB
 //     projections, bit 0 first, and exp(beta * clip(dot * scale)); the
-//     similarity and top-k kernels (rows 1, 3, 9/10) score with these;
+//     top-k kernels (rows 3, 9/10) score with these, the similarity
+//     kernel (row 1) with rows_dots, the same chain for several rows at
+//     once from 16-byte word loads;
 //   * build_tables / lut_slot_sum: the segment sums' (rows 2, 7)
 //     table-lookup scoring.  After the projection, the block builds
 //     per query and 4-bit chunk c of the signature the 16 signed sums
@@ -109,6 +111,69 @@ __device__ __forceinline__ void doc_dots(const uint32_t* __restrict__ row,
       dot[5] = fmaf(s, hi.y, dot[5]);
       dot[6] = fmaf(s, hi.z, dot[6]);
       dot[7] = fmaf(s, hi.w, dot[7]);
+    }
+  }
+}
+
+// doc_dots for R rows at once, the same chain bit for bit: dot[r][b]
+// takes fmaf(sign_j, proj[j][b], .) over bits j = 0, 1, ... of row
+// rows[r], so each pair of broadcast projection loads feeds 8 R
+// multiply-adds.  Where ``vec`` says the rows allow it (every row
+// 16-byte aligned, nwords a multiple of 4) a row's words are read four
+// at a time, as one 16-byte load, before their 128 bits are scored.
+template <int R>
+__device__ __forceinline__ void rows_dots(const uint32_t* __restrict__ db,
+                                          const size_t (&rows)[R], int W,
+                                          int nwords, bool vec,
+                                          const float4* __restrict__ proj4,
+                                          float (&dot)[R][TB]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int b = 0; b < TB; ++b) dot[r][b] = 0.f;
+  for (int k0 = 0; k0 < nwords; k0 += 4) {
+    uint32_t ws[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint32_t* row = db + rows[r] * W + k0;
+      if (vec) {                             // uniform across the warp
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+        ws[r][0] = v.x; ws[r][1] = v.y; ws[r][2] = v.z; ws[r][3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ws[r][j] = k0 + j < nwords ? __ldg(row + j) : 0u;
+      }
+    }
+    // one word a step, not unrolled: the 32 unrolled bits of R rows
+    // are the loop body (a body of all four words outgrows the
+    // instruction cache); the next word moves down into ws[r][0]
+#pragma unroll 1
+    for (int j = 0; j < 4 && k0 + j < nwords; ++j) {
+      const float4* p = proj4 + (size_t)(k0 + j) * 32 * (TB / 4);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float4 lo = p[2 * i];
+        const float4 hi = p[2 * i + 1];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float s = ((ws[r][0] >> i) & 1u) ? 1.f : -1.f;
+          dot[r][0] = fmaf(s, lo.x, dot[r][0]);
+          dot[r][1] = fmaf(s, lo.y, dot[r][1]);
+          dot[r][2] = fmaf(s, lo.z, dot[r][2]);
+          dot[r][3] = fmaf(s, lo.w, dot[r][3]);
+          dot[r][4] = fmaf(s, hi.x, dot[r][4]);
+          dot[r][5] = fmaf(s, hi.y, dot[r][5]);
+          dot[r][6] = fmaf(s, hi.z, dot[r][6]);
+          dot[r][7] = fmaf(s, hi.w, dot[r][7]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ws[r][0] = ws[r][1];
+        ws[r][1] = ws[r][2];
+        ws[r][2] = ws[r][3];
+      }
     }
   }
 }
@@ -597,19 +662,51 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// Blocks of `threads` threads of `kernel` that fit on the card at once,
+// per query tile of n_qtiles.  The SM count and the occupancy are
+// queried once per (device, kernel, threads, smem) and host thread,
+// not at every launch.  Call after prepare.
+template <typename K>
+int wave_blocks(K kernel, int threads, size_t smem, int n_qtiles) {
+  struct Seen {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    int blocks;
+  };
+  constexpr int SEEN = 16;
+  thread_local Seen seen[SEEN];
+  thread_local int n_seen = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const void* k = reinterpret_cast<const void*>(kernel);
+  int blocks = 0;
+  for (int i = 0; i < n_seen && i < SEEN; ++i)
+    if (seen[i].kernel == k && seen[i].dev == dev &&
+        seen[i].threads == threads && seen[i].smem == smem)
+      blocks = seen[i].blocks;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, smem) == cudaSuccess && per_sm > 0) {
+      blocks = sms * per_sm;
+      seen[n_seen++ % SEEN] = Seen{k, dev, threads, smem, blocks};
+    } else {
+      cudaGetLastError();
+      blocks = sms;
+    }
+  }
+  return (blocks + n_qtiles - 1) / n_qtiles;
+}
+
 // Blocks along x of a segment-sum launch over S slots and n_qtiles
 // query tiles: one wave, as many blocks as fit on the card at once
 // (spread over the query tiles), and no more than the slots need.
 // Call after prepare.
 template <typename K>
 int lut_grid_x(K kernel, size_t smem, int S, int n_qtiles) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                smem);
-  const int wave = (sms * (per_sm > 0 ? per_sm : 1) + n_qtiles - 1) /
-                   n_qtiles;
+  const int wave = wave_blocks(kernel, THREADS, smem, n_qtiles);
   const int need = (S + WARPS - 1) / WARPS;
   return wave < need ? wave : need;
 }

@@ -76,7 +76,7 @@ hamming_tile_kernel(const uint32_t* __restrict__ q,
     const size_t m = m0 + (size_t)r * THREADS + threadIdx.x;
     if (m >= (size_t)M) break;
     int dist[TB];
-    row_distances(db + m * W, W, smem4, dist);
+    row_distances<TB, TB>(db + m * W, W, false, smem4, dist);
 #pragma unroll
     for (int b = 0; b < TB; ++b) {
       if (b < nb) {
@@ -112,7 +112,7 @@ hamming_segsum_kernel(const uint32_t* __restrict__ q,
     const int lo = max(0, offsets[s]);
     const int hi = min(M, offsets[s + 1]);
     float acc[TB];
-    slot_sum(db, lo, hi, W, smem4, tab, acc);
+    slot_sum<TB, TB>(db, lo, hi, W, false, smem4, tab, acc);
 #pragma unroll
     for (int b = 0; b < TB; ++b)
       if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];

@@ -38,10 +38,10 @@
 //
 // What the design does about it:
 //   * padding is most of the payload at real scale (shards of ~26 docs
-//     padded to 256 rows): the sum kernels never read it — a warp owns
-//     one slot at a time and walks only its real rows [row_start,
-//     row_start + count), with the per-slot sum of the segment-sum
-//     kernel of the same mode (asym_tile::lut_slot_sum,
+//     padded to 256 rows): the sum kernels never read it — they walk
+//     only a slot's real rows [row_start, row_start + count) and sum
+//     them in the order of the per-slot sum of the segment-sum kernel
+//     of the same mode (asym_tile::lut_slot_sum,
 //     hamming_tile::slot_sum).  So a slot's sum depends only on its own
 //     rows in a fixed order, and three properties hold by construction,
 //     bit for bit: group launch == per-shard launch, this kernel == the
@@ -64,9 +64,12 @@
 //     memory only the rows up to the block's last real row (rounded up
 //     to a power of two at least K), masked rows at -inf;
 //   * a top-k block stages its TB-query projection once into shared
-//     memory and serves TOPK_PER_WARP payload blocks per warp; a sym
-//     sum block stages its TB query signatures and value table and
-//     serves SLOTS_PER_WARP slots per warp.
+//     memory and serves TOPK_PER_WARP payload blocks per warp;
+//   * the sym sum: a block stages HQ = 16 query signatures (B <= 16 is
+//     one tile, so each row word is loaded once, as one of two 16-byte
+//     loads at W = 8, and XORed with the live queries only) and the
+//     value table; one wave of blocks, each warp a contiguous run of
+//     slots, one slot at a time through hamming_tile::slot_sum.
 // The TPU's 2-slot DMA ring is a data-movement schedule; this port
 // reads signatures straight from device memory (no cp.async/TMA
 // pipeline).
@@ -81,7 +84,6 @@ namespace {
 
 using namespace asym_tile;
 
-constexpr int SLOTS_PER_WARP = 4;           // slots per warp, Hamming sum
 constexpr int TOPK_PER_WARP = 4;            // payload blocks per warp, top-k
 constexpr int TOPK_BLOCKS = WARPS * TOPK_PER_WARP;
 
@@ -185,7 +187,38 @@ megascan_topk_sort_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(hamming_tile::THREADS)
+// The Hamming sum (row 8).  A block holds one tile of HQ query
+// signatures, so B <= 16 is one tile: each row word is loaded once and
+// XORed with the live queries only (a template on their count, NB).
+// Warp g of the G warps of a query tile owns the slots [S g / G,
+// S (g + 1) / G) and sums them one after another with slot_sum.
+namespace ht = hamming_tile;
+
+constexpr int HQ = 16;                      // query signatures per block
+
+template <int NB>
+__device__ inline void ham_slots(const uint32_t* __restrict__ sig,
+                                 const int* __restrict__ row_start,
+                                 const int* __restrict__ row_count,
+                                 int n_rows, int W, bool vec,
+                                 const uint4* __restrict__ q4,
+                                 const float* __restrict__ tab, int s_lo,
+                                 int s_hi, int S, int q0,
+                                 float* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  for (int s = s_lo; s < s_hi; ++s) {
+    const int lo = max(0, row_start[s]);
+    const int hi = (int)min((long long)n_rows,
+                            (long long)row_start[s] + row_count[s]);
+    float acc[NB];
+    ht::slot_sum<HQ, NB>(sig, lo, hi, W, vec, q4, tab, acc);
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (lane == b) out[(size_t)(q0 + b) * S + s] = acc[b];
+  }
+}
+
+__global__ void __launch_bounds__(ht::THREADS)
 hamming_megascan_segsum_kernel(const uint32_t* __restrict__ q,
                                const uint32_t* __restrict__ sig,
                                const int* __restrict__ row_start,
@@ -193,29 +226,38 @@ hamming_megascan_segsum_kernel(const uint32_t* __restrict__ q,
                                const float* __restrict__ table,
                                float* __restrict__ out, int B, int n_rows,
                                int W, int S) {
-  namespace ht = hamming_tile;
   extern __shared__ uint4 hsmem4[];
   uint32_t* q_t = reinterpret_cast<uint32_t*>(hsmem4);
-  float* tab = reinterpret_cast<float*>(q_t + (size_t)ht::TB * W);
-  const int q0 = blockIdx.y * ht::TB;
-  ht::stage(q, table, B, W, q0, q_t, tab);
-  const int nb = min(ht::TB, B - q0);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int s_first = blockIdx.x * (ht::WARPS * SLOTS_PER_WARP)
-                      + warp * SLOTS_PER_WARP;
-  for (int i = 0; i < SLOTS_PER_WARP; ++i) {
-    const int s = s_first + i;
-    if (s >= S) break;                       // uniform across the warp
-    const int lo = max(0, row_start[s]);
-    const int hi = (int)min((long long)n_rows,
-                            (long long)row_start[s] + row_count[s]);
-    float acc[ht::TB];
-    ht::slot_sum(sig, lo, hi, W, hsmem4, tab, acc);
-#pragma unroll
-    for (int b = 0; b < ht::TB; ++b)
-      if (lane == b && b < nb) out[(size_t)(q0 + b) * S + s] = acc[b];
+  float* tab = reinterpret_cast<float*>(q_t + (size_t)HQ * W);
+  const int q0 = blockIdx.y * HQ;
+  ht::stage<HQ>(q, table, B, W, q0, q_t, tab);
+  const bool vec = (W & 3) == 0 && (reinterpret_cast<uintptr_t>(sig) & 15) == 0;
+  const long long g = (long long)blockIdx.x * ht::WARPS + threadIdx.x / 32;
+  const long long G = (long long)gridDim.x * ht::WARPS;
+  const int s_lo = (int)(S * g / G), s_hi = (int)(S * (g + 1) / G);
+  switch (min(HQ, B - q0)) {                 // uniform across the block
+#define HAM_CASE(N)                                                      \
+  case N:                                                                \
+    ham_slots<N>(sig, row_start, row_count, n_rows, W, vec, hsmem4, tab, \
+                 s_lo, s_hi, S, q0, out);                                \
+    break;
+    HAM_CASE(1) HAM_CASE(2) HAM_CASE(3) HAM_CASE(4)
+    HAM_CASE(5) HAM_CASE(6) HAM_CASE(7) HAM_CASE(8)
+    HAM_CASE(9) HAM_CASE(10) HAM_CASE(11) HAM_CASE(12)
+    HAM_CASE(13) HAM_CASE(14) HAM_CASE(15) HAM_CASE(16)
+#undef HAM_CASE
+    default:
+      break;
   }
+}
+
+// Blocks along x of a Hamming-sum launch: one wave over the query
+// tiles, at most one block per WARPS slots.  Call after prepare.
+int ham_grid_x(size_t smem, int S, int n_qtiles) {
+  const int wave = wave_blocks(hamming_megascan_segsum_kernel, ht::THREADS,
+                               smem, n_qtiles);
+  const int need = (S + ht::WARPS - 1) / ht::WARPS;
+  return wave < need ? wave : need;
 }
 
 }  // namespace
@@ -270,16 +312,29 @@ int megascan_topk_launch(const float* q, const float* planes,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of one Hamming-sum block at W words, and its blocks
+// along x over S slots for B queries (the grid is that by ceil(B / 16));
+// a negative CUDA error if the kernel cannot take the shared memory.
+size_t hamming_megascan_smem(int W) { return ht::smem_bytes(W, HQ); }
+int hamming_megascan_query_tile() { return HQ; }
+int hamming_megascan_grid_x(int W, int S, int B) {
+  const size_t smem = ht::smem_bytes(W, HQ);
+  cudaError_t err = prepare(hamming_megascan_segsum_kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return ham_grid_x(smem, S, (B + HQ - 1) / HQ);
+}
+
 int hamming_megascan_segsum_launch(const uint32_t* q, const uint32_t* sig,
                                    const int* row_start, const int* row_count,
                                    const float* table, float* out, int B,
                                    int n_rows, int W, int S, void* stream) {
   cudaGetLastError();
-  const size_t smem = hamming_tile::smem_bytes(W);
-  const int per_block = hamming_tile::WARPS * SLOTS_PER_WARP;
-  const dim3 grid((S + per_block - 1) / per_block,
-                  (B + hamming_tile::TB - 1) / hamming_tile::TB);
-  hamming_megascan_segsum_kernel<<<grid, hamming_tile::THREADS, smem,
+  const size_t smem = ht::smem_bytes(W, HQ);
+  cudaError_t err = prepare(hamming_megascan_segsum_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (B + HQ - 1) / HQ;
+  const dim3 grid(ham_grid_x(smem, S, n_qtiles), n_qtiles);
+  hamming_megascan_segsum_kernel<<<grid, ht::THREADS, smem,
                                    (cudaStream_t)stream>>>(
       q, sig, row_start, row_count, table, out, B, n_rows, W, S);
   return (int)cudaGetLastError();

@@ -3,8 +3,9 @@
 
   * ``asym_similarity_kernel`` replaces the JAX package's
     ``kernels/asym/kernel.py::asym_similarity_kernel``: [B, M] float32
-    exp(beta * asym-cos), the projection q . planes^T computed inside
-    the kernel.
+    exp(beta * asym-cos), the projection q . planes^T computed on the
+    card, once per query tile, into a scratch buffer the wrapper
+    allocates, then the values.
   * ``asym_segment_sum_kernel`` replaces
     ``kernels/asym/kernel.py::asym_segment_sum_kernel``: per-segment
     sums of the same values over CSR-sorted rows, [B, S] float32,
@@ -45,7 +46,7 @@ def _lib() -> ctypes.CDLL:
         lib.asym_query_tile.argtypes = []
         lib.asym_query_tile.restype = _I
         lib.asym_exp_similarity_launch.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
         lib.asym_exp_similarity_launch.restype = _I
         lib.asym_exp_segment_sum_launch.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -63,6 +64,10 @@ def _lib() -> ctypes.CDLL:
         lib.asym_lut_smem.restype = ctypes.c_size_t
         lib.asym_segsum_grid_x.argtypes = [_I, _I, _I, _I]
         lib.asym_segsum_grid_x.restype = _I
+        lib.asym_sim_smem.argtypes = [_I]
+        lib.asym_sim_smem.restype = ctypes.c_size_t
+        lib.asym_sim_grid_x.argtypes = [_I, _I, _I]
+        lib.asym_sim_grid_x.restype = _I
         lib._asym_typed = True
     return lib
 
@@ -132,19 +137,37 @@ def check_lut_smem(bits: int, dim: int, what: str) -> None:
             f"limit of {limit} bytes")
 
 
-def launch_shape(grid_x, bits: int, dim: int, s: int, b: int) -> dict:
-    """A segment-sum launch's shared memory per block and grid, from the
-    library's ``grid_x(bits, dim, S, B)``."""
-    x = grid_x(bits, dim, s, b)
+def grid_shape(x: int, y: int, smem: int, what: str) -> dict:
+    """A launch's record: its shared memory per block, its grid and the
+    blocks each SM of the current device holds (the grid over the SMs,
+    rounded up); ``x`` < 0 is the negated CUDA error of the grid query."""
     if x < 0:
-        raise RuntimeError(f"segment-sum grid: CUDA error {-x}")
-    return dict(smem_bytes=int(_lib().asym_lut_smem(bits, dim)),
-                grid=(x, -(-b // _lib().asym_query_tile())))
+        raise RuntimeError(f"{what} grid: CUDA error {-x}")
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return dict(smem_bytes=int(smem), grid=(x, y),
+                blocks_per_sm=-(-(x * y) // sms))
+
+
+def launch_shape(grid_x, bits: int, dim: int, s: int, b: int) -> dict:
+    """A segment-sum launch's record (``grid_shape``), from the
+    library's ``grid_x(bits, dim, S, B)``."""
+    return grid_shape(grid_x(bits, dim, s, b),
+                      -(-b // _lib().asym_query_tile()),
+                      _lib().asym_lut_smem(bits, dim), "segment-sum")
 
 
 def segsum_launch_shape(bits: int, dim: int, s: int, b: int) -> dict:
     """``asym_segment_sum_kernel``'s launch at these widths."""
     return launch_shape(_lib().asym_segsum_grid_x, bits, dim, s, b)
+
+
+def sim_launch_shape(bits: int, m: int, b: int) -> dict:
+    """``asym_similarity_kernel``'s launch at these widths."""
+    lib = _lib()
+    return grid_shape(lib.asym_sim_grid_x(bits, m, b),
+                      -(-b // lib.asym_query_tile()),
+                      lib.asym_sim_smem(bits), "similarity")
 
 
 def asym_similarity_kernel(q: torch.Tensor, planes: torch.Tensor,
@@ -157,9 +180,12 @@ def asym_similarity_kernel(q: torch.Tensor, planes: torch.Tensor,
     if b == 0 or m == 0:
         return out
     _check_grid(b)
+    tile = _lib().asym_query_tile()
+    proj = torch.empty(-(-b // tile) * bits * tile, dtype=torch.float32,
+                       device=q.device)
     rc = _lib().asym_exp_similarity_launch(
-        q.data_ptr(), planes.data_ptr(), db.data_ptr(), out.data_ptr(),
-        b, dim, bits, m, w, _scale(bits), float(temperature),
+        q.data_ptr(), planes.data_ptr(), db.data_ptr(), proj.data_ptr(),
+        out.data_ptr(), b, dim, bits, m, w, _scale(bits), float(temperature),
         common.stream_ptr(q.device))
     common.check_launch(rc, "asym_exp_similarity")
     asym_similarity_kernel.launches += 1

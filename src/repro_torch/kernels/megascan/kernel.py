@@ -24,7 +24,9 @@ it).
     the sum in sym mode, [B, S] float32 per-slot sums of exp(beta *
     cos(pi * m / bits)) over each slot's real rows, m the Hamming
     distance of packed signatures; bitwise equal to the Hamming segment
-    sum (``kernels/hamming``) over the same rows.
+    sum (``kernels/hamming``) over the same rows and to
+    ``testing.hamming_warp_sums``, its exact model.  Queries come 16 to
+    a block (B <= 16 is one tile), one warp per slot.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take, allocates its outputs with
@@ -42,7 +44,8 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.asym.kernel import (_F, _I, _P, _check,
                                              _check_grid, _check_smem, _scale,
-                                             check_lut_smem, launch_shape)
+                                             check_lut_smem, grid_shape,
+                                             launch_shape)
 from repro_torch.kernels.hamming.kernel import check_bits, check_operands
 from repro_torch.kernels.hamming.ref import value_table
 
@@ -62,6 +65,12 @@ def _lib() -> ctypes.CDLL:
         lib.hamming_megascan_segsum_launch.restype = _I
         lib.megascan_segsum_grid_x.argtypes = [_I, _I, _I, _I]
         lib.megascan_segsum_grid_x.restype = _I
+        lib.hamming_megascan_smem.argtypes = [_I]
+        lib.hamming_megascan_smem.restype = ctypes.c_size_t
+        lib.hamming_megascan_grid_x.argtypes = [_I, _I, _I]
+        lib.hamming_megascan_grid_x.restype = _I
+        lib.hamming_megascan_query_tile.argtypes = []
+        lib.hamming_megascan_query_tile.restype = _I
         lib._megascan_typed = True
     return lib
 
@@ -172,3 +181,12 @@ def hamming_megascan_segsum_kernel(q: torch.Tensor, sig: torch.Tensor,
 
 
 hamming_megascan_segsum_kernel.launches = 0
+
+
+def hamming_segsum_launch_shape(w: int, s: int, b: int) -> dict:
+    """``hamming_megascan_segsum_kernel``'s launch at W words, S slots
+    and B queries (``grid_shape``)."""
+    lib = _lib()
+    return grid_shape(lib.hamming_megascan_grid_x(w, s, b),
+                      -(-b // lib.hamming_megascan_query_tile()),
+                      lib.hamming_megascan_smem(w), "Hamming sum")

@@ -254,3 +254,35 @@ def lut_segment_sums(query_vecs: torch.Tensor, db: torch.Tensor,
                             db[rows], planes.to(torch.float32), bits,
                             temperature)
     return warp_slot_sums(vals, first, counts)
+
+
+# ----------------------------------------------------------------------
+# the Hamming megascan sum of row 8, in the kernel's order
+# ----------------------------------------------------------------------
+def slot_ranges(row_start: torch.Tensor, row_count: torch.Tensor,
+                n_rows: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Each slot's first row and real rows as the megascan kernels
+    clip them: [max(0, start), min(n_rows, start + count)), int64."""
+    start = row_start.to(torch.int64)
+    lo = start.clamp(min=0)
+    hi = torch.minimum(start + row_count.to(torch.int64),
+                       torch.full_like(start, n_rows))
+    return lo, (hi - lo).clamp(min=0)
+
+
+def hamming_warp_sums(q_packed: torch.Tensor, sig: torch.Tensor,
+                      row_start: torch.Tensor, row_count: torch.Tensor,
+                      bits: int, temperature: float = 1.0) -> torch.Tensor:
+    """The exact model of row 8 (``csrc/megascan.cu``,
+    ``hamming_megascan_segsum_kernel``): [B, S] float32, the plain
+    per-row values (``hamming_similarity_ref``, read from the same
+    32·W+1-entry table) of each slot's real rows summed as one warp sums
+    them (``warp_slot_sums``).  The kernel gives these bits."""
+    from repro_torch.kernels.hamming.ref import hamming_similarity_ref
+    lo, cnt = slot_ranges(row_start, row_count, sig.shape[0])
+    first = torch.cumsum(cnt, 0) - cnt
+    rows = (torch.repeat_interleave(lo, cnt)
+            + torch.arange(int(cnt.sum()), device=sig.device)
+            - torch.repeat_interleave(first, cnt))
+    vals = hamming_similarity_ref(q_packed, sig[rows], bits, temperature)
+    return warp_slot_sums(vals, first, cnt)

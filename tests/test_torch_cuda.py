@@ -20,7 +20,8 @@ from repro_torch.kernels.asym import ref as tref
 from repro_torch.testing import (KMEANS_SHAPES, NEGSAMP_SHAPES, SELECT_KS,
                                  assert_assign_away_from_ties,
                                  assert_ids_equal_away_from_ties,
-                                 block_slots, ragged_segments, select_counts,
+                                 block_slots, hamming_warp_sums,
+                                 ragged_segments, select_counts,
                                  topk_candidates_from_scores)
 
 
@@ -77,6 +78,40 @@ def test_cuda_kernels_match_plain(cuda_device, b, m, s, dim, bits, temp):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
     assert tkernel.asym_similarity_kernel.launches == n_sim + 2
     assert tkernel.asym_segment_sum_kernel.launches == n_seg + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 48])
+@pytest.mark.parametrize("m,dim,bits", [
+    (7, 64, 256), (31, 64, 64), (1537, 64, 256), (2049, 48, 512),
+    (3000, 30, 256), (39983, 64, 256), (300001, 64, 64),
+])
+def test_cuda_similarity_row_walk_matches_top_k_values(cuda_device, b, m,
+                                                       dim, bits):
+    """Row 1 where its row walk has edges: M under a warp, M off the
+    block stride (SIM_ROWS rows a thread), several strides (the largest
+    M), dim 30 (the projection's 4-byte loads), bits 64/256/512.  Within
+    rtol 1e-4 of the plain version, bitwise run to run, and bit for bit
+    the top-k kernel's values at its candidates: the two score one chain
+    (doc_dots), which the top-k oracle relies on."""
+    _, q, planes, db = _setup(b, m, dim, bits, b + m + bits, cuda_device)
+    qn = tops._prep_queries(q)
+    n = tkernel.asym_similarity_kernel.launches
+    got = tkernel.asym_similarity_kernel(qn, planes, db, bits,
+                                         temperature=8.0)
+    again = tkernel.asym_similarity_kernel(qn, planes, db, bits,
+                                           temperature=8.0)
+    torch.cuda.synchronize()
+    assert tkernel.asym_similarity_kernel.launches == n + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, tref.asym_exp_similarity_ref(q, db, planes, bits, 8.0),
+        rtol=1e-4, atol=1e-6)
+    vals, idx = tkernel.asym_topk_kernel(qn, planes, db, bits, min(10, m),
+                                         temperature=8.0)
+    real = torch.isfinite(vals)
+    at = torch.gather(got, 1, idx.long().clamp(max=m - 1))
+    assert bool(real.any()) and torch.equal(vals[real], at[real])
 
 
 @pytest.mark.cuda
@@ -372,15 +407,28 @@ def test_cuda_hamming_wrappers_reject_bad_operands(cuda_device):
         hker.hamming_similarity_kernel(q, db.cpu(), 128)
 
 
+# slots of 26 (the served mean), 32 (a full warp) and 33 rows (a second
+# pass of the warp) beside empty and one-row slots
+HAMMING_SLOTS = (26, 32, 33, 0, 26, 1, 45, 26, 31)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [5, 12, 16, 17, 32])
 @pytest.mark.parametrize("counts,tm", [(RAGGED, 8), (RAGGED, 16),
-                                       ((300, 40, 9), 256)])
-def test_cuda_hamming_megascan_matches_plain_and_is_bitwise(cuda_device,
+                                       ((300, 40, 9), 256),
+                                       (HAMMING_SLOTS, 64),
+                                       (HAMMING_SLOTS * 40, 32)])
+def test_cuda_hamming_megascan_matches_plain_and_is_bitwise(cuda_device, b,
                                                             counts, tm):
+    """Row 8: one launch, bitwise run to run, == the streamed schedule
+    (row 6), == ``testing.hamming_warp_sums`` (its exact model) and ==
+    single-shard payloads bit for bit; the plain version within rtol
+    1e-4; empty slots exactly 0.  B on both sides of the 16-query tile."""
     from repro_torch.kernels.megascan import kernel as mker
     from repro_torch.kernels.megascan import ops as mops
     from repro_torch.kernels.megascan import ref as mref
-    segs, q, planes = ragged_segments(counts, 16, 64, tm + len(counts))
+    segs, q, planes = ragged_segments(counts, 16, 64, tm + len(counts),
+                                      n_queries=b)
     qsig = lsh.sign_vectors_np(q, planes)
     pay = mops.build_payload(segs, tm=tm, device=cuda_device)
     n = mker.hamming_megascan_segsum_kernel.launches
@@ -397,8 +445,11 @@ def test_cuda_hamming_megascan_matches_plain_and_is_bitwise(cuda_device,
         lsh.to_packed_tensor(qsig, cuda_device), pay.sig, 64, pay.row_start,
         pay.row_count, 4.0)
     np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-4)
+    model = hamming_warp_sums(lsh.to_packed_tensor(qsig, cuda_device),
+                              pay.sig, pay.row_start, pay.row_count, 64, 4.0)
+    assert np.array_equal(got, model.double().cpu().numpy())
     assert (got[:, np.asarray(counts) == 0] == 0).all()
-    for s, seg in enumerate(segs):
+    for s, seg in enumerate(segs[:12]):
         one = mops.build_payload([seg], tm=tm, device=cuda_device)
         single = mops.megascan_segment_sums(one, qsig, None, 64,
                                             mode="hamming", temperature=4.0)
