@@ -142,14 +142,60 @@ Phases, each of which raises (exit code not 0) on any failure:
                 with the plain path (rtol 1e-4); the wall of each step
                 and the count-estimate errors are printed.
 
+ 15. ingest   — live ingest at 2^20 docs: a doc-granular, centred index
+                over the serving corpus from phase 12's trained model;
+                1024 new documents (``generate_text_corpus``, another
+                seed) appended at 4096-token shards (the open shard grows,
+                new shards spill); ``refresh_appended`` at 50 inference
+                steps, each document timed; then the checks: old doc rows
+                and untouched shard rows byte-identical, touched shard
+                rows the build ops over the new membership (mean, then
+                ``_sign_rows``) bit for bit, doc frequencies exact, the
+                refreshed index's row-2 planning of a batch within rtol
+                1e-4 of the plain version over arrays rebuilt from the new
+                corpus, a megascan sum over the touched and new shards bit
+                for bit the per-shard route, and a semantic-cache entry
+                from before the swap not served after the content bump;
+                then a batch of 12 on the new generation.  Prints the
+                inference ms a document (median, p90), the refresh wall
+                by step (inference, signing, centroids, doc frequencies,
+                the first device upload) and the batch wall.
+ 16. stack    — ``build_serving_stack`` on phase 14's build: 4 simulated
+                hosts, 2 replicas, balanced, cache, planner, window, fleet
+                and ingest, the megakernel route on.  96 mixed queries
+                stream through the window while the ingestor appends 4 x
+                256 documents (spilling new shards, so the placement
+                extends) and a fault plan crashes host 2 at the second
+                host-group job; every future resolves.  Then a megascan
+                sum through the host group: row 7 launches once a host
+                group with work, bitwise the per-shard route; and a census
+                through the stack equals the exact counts of the final
+                corpus under the last generation minted.  Prints the
+                window's batch sizes, the controller's plan, each ingest
+                step's wall, the host-group walls and the balance and
+                budget audits.
+ 17. recommend — a review corpus of 8192 users and 2048 items
+                (``generate_review_corpus``, vocab 8192, 16 topics; the
+                generation time is printed), user documents sharded at
+                4096 tokens, PV-DBOW at the EmApprox settings (row 11), an
+                asym and a sym index, and benchmarks/recsys_bench.py's
+                protocol (40 test users, 20 % of each one's ratings held
+                out, rates 0.10 / 0.25 / 0.50 / 1.0, ``emapprox`` against
+                ``srcs``; the sym index at 0.25): MSE and P@10 printed,
+                not gated.  Gate: ``vector_shard_similarities_batch`` of
+                the 40 user vectors against its plain version, row 1
+                within rtol 1e-4, row 5 exactly.
+
 Each of the main paths (serving, megascan, top-k, their sym
-counterparts, training, k-means and the offline build) is driven with
-the launch counters set to 0 just before it and read just after; each
-of its kernels must have launched.  Row 5 runs on three paths (the sym
-batch, the shard-granular planning, the sym top-k): its record's
-``launches`` is the sym batch's count and ``launches_by_path`` has
-each path's own; so do rows 1, 2, 11 and 12 (their first path and the
-offline build).  The last three lines of standard
+counterparts, training, k-means, the offline build, ingest, the stack
+and recommendation) is driven with the launch counters set to 0 just
+before it and read just after; each of its kernels must have launched,
+and launches made only to hold one route against another are left out.
+Row 5 runs on four paths (the sym batch, the shard-granular planning,
+the sym top-k, recommendation): its record's ``launches`` is the sym
+batch's count and ``launches_by_path`` has each path's own; so do rows
+1, 2, 7, 11 and 12 (their first path, the offline build, ingest, the
+stack and recommendation).  The last three lines of standard
 output are the card line, the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -204,6 +250,19 @@ MEGA_SHAPES = [  # (shard doc counts, tm, k, duplicated rows); dim 16, bits 64
     (RAGGED, 8, 5, False), (RAGGED, 16, 5, False), ((300, 40, 9), 256, 7, False),
     (RAGGED, 16, 5, True),
 ]
+
+
+APPEND_DOCS = 1024      # documents phase 15 appends to the 2^20 corpus
+INFER_STEPS = 50        # frozen-model inference steps a document
+STACK_QUERIES = 96      # queries phase 16 streams through the window
+STACK_STEPS = 4         # ingest steps of phase 16, STACK_DOCS docs each
+STACK_DOCS = 256
+STACK_YIELD_S = 2e-4    # the writer's yield a step (default 2 ms)
+STACK_CRASH_JOB = 1     # host-group job at which the fault plan crashes
+REVIEW_USERS = 8192     # phase 17's review corpus (cut, see PERF.md)
+REVIEW_ITEMS = 2048
+REVIEW_TEST_USERS = 40
+REVIEW_RATES = (0.10, 0.25, 0.50)
 
 
 def log(msg: str) -> None:
@@ -1981,10 +2040,12 @@ def kmeans_phase(dev: torch.device, ctx: dict) -> list:
     return [kr]
 
 
-def build_serve_phase(dev: torch.device, args, kernels: list) -> None:
+def build_serve_phase(dev: torch.device, args, kernels: list) -> dict:
     """Phase 14: the JAX package's offline build and one served batch, in
     the order of examples/serve_queries.py, on a fresh corpus; adds this
-    path's launches to the records of rows 1, 2, 11 and 12."""
+    path's launches to the records of rows 1, 2, 11 and 12.  Returns the
+    allocated corpus, its index and the trained model (phase 16 serves
+    them)."""
     from repro_torch.configs.emapprox import CONFIG
     from repro_torch.core.allocation import allocate_corpus
     from repro_torch.core.index import build_index
@@ -2096,6 +2157,513 @@ def build_serve_phase(dev: torch.device, args, kernels: list) -> None:
             kr.setdefault("launches_by_path",
                           {"serving": kr["launches"]})["offline_build"] = \
                 launches[kr["name"]]
+    return dict(corpus=allocated, index=index, model=model)
+
+
+# ----------------------------------------------------------------------
+# phases 15-17: live ingest, the serving stack, recommendation
+# ----------------------------------------------------------------------
+KERNEL_MODULES = {  # record name -> (module, wrapper) of each row counted
+    "asym_exp_similarity": ("repro_torch.kernels.asym.kernel",
+                            "asym_similarity_kernel"),
+    "asym_exp_segment_sum": ("repro_torch.kernels.asym.kernel",
+                             "asym_segment_sum_kernel"),
+    "hamming_similarity": ("repro_torch.kernels.hamming.kernel",
+                           "hamming_similarity_kernel"),
+    "asym_megascan_segsum": ("repro_torch.kernels.megascan.kernel",
+                             "asym_megascan_segsum_kernel"),
+    "negsamp_grads": ("repro_torch.kernels.negsamp.kernel",
+                      "negsamp_grads_kernel"),
+}
+
+
+def _wrapper(name: str):
+    import importlib
+    mod, fn = KERNEL_MODULES[name]
+    return getattr(importlib.import_module(mod), fn)
+
+
+def zero_counts(names) -> None:
+    for n in names:
+        _wrapper(n).launches = 0
+
+
+def read_counts(names) -> dict:
+    return {n: _wrapper(n).launches for n in names}
+
+
+class uncounted:
+    """Restore the named rows' counters on exit: launches made to hold a
+    route against another (the per-shard megascan, plain checks) do not
+    count as launches of the path."""
+
+    def __init__(self, names):
+        self.names = list(names)
+
+    def __enter__(self):
+        self.saved = read_counts(self.names)
+
+    def __exit__(self, *exc):
+        for n, c in self.saved.items():
+            _wrapper(n).launches = c
+
+
+def add_path(kernels: list, path: str, launches: dict) -> None:
+    """Record this path's launches under ``launches_by_path`` of each
+    row that ran on it."""
+    for kr in kernels:
+        if kr["name"] in launches:
+            kr.setdefault("launches_by_path",
+                          {"serving": kr["launches"]})[path] = \
+                launches[kr["name"]]
+
+
+def require_launched(launches: dict, path: str) -> None:
+    log(f"   launches on the {path} path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the {path} path")
+
+
+def fresh_segment_sums(index, corpus, vecs: np.ndarray) -> np.ndarray:
+    """[B, n_shards] planning sums by row 2's plain version over arrays
+    rebuilt here from the index's host arrays and the corpus' doc ->
+    shard map (nothing read from the index's device caches)."""
+    from repro_torch.core import lsh
+    from repro_torch.kernels.asym import ref
+
+    seg = np.asarray(corpus.doc_shard_map(), np.int64)
+    order = np.argsort(seg, kind="stable")
+    sig = lsh.to_packed_tensor(index.doc_sig[order], index.device)
+    seg_t = torch.as_tensor(seg[order].astype(np.int32), device=index.device)
+    planes = torch.as_tensor(np.asarray(index.planes, np.float32),
+                             device=index.device)
+    return ref.asym_exp_segment_sum_ref(
+        torch.as_tensor(np.asarray(vecs, np.float32), device=index.device),
+        sig, planes, index.bits, seg_t, corpus.n_shards,
+        index.temperature).cpu().numpy().astype(np.float64)
+
+
+def ingest_phase(dev: torch.device, args, ctx: dict, kernels: list) -> None:
+    """Phase 15: live ingest at 2^20 docs on phase 12's trained model: a
+    doc-granular index, 1024 appended documents (the open shard grows,
+    new shards spill), ``refresh_appended`` at 50 inference steps, the
+    checks of the refresh, the content fence, and one batch of 12 on the
+    new generation."""
+    from repro_torch.configs.emapprox import CONFIG
+    from repro_torch.core import pv_dbow
+    from repro_torch.core.index import _sign_rows, build_index, refresh_appended
+    from repro_torch.core.queries import BatchQuery, QueryBatch
+    from repro_torch.data.corpus import generate_text_corpus
+    from repro_torch.kernels.megascan import MegascanSpec
+    from repro_torch.runtime.executor import ShardTaskExecutor
+    from repro_torch.runtime.generation import GenerationClock
+    from repro_torch.runtime.qcache import SemanticQueryCache
+
+    t_phase = time.perf_counter()
+    corpus, model = ctx["corpus"], ctx["model"]
+    t = time.perf_counter()
+    index = build_index(corpus, model, CONFIG.lsh,
+                        temperature=CONFIG.pv.temperature, granularity="doc",
+                        keep_doc_vectors=True, center=True,
+                        device=dev).attach_corpus(corpus)
+    clock = GenerationClock()
+    index.use_clock(clock)
+    index._fused_device_arrays()
+    torch.cuda.synchronize()
+    log(f"   index over the trained model: {corpus.n_docs} docs, "
+        f"{corpus.n_shards} shards, {time.perf_counter() - t:.3f} s")
+    ccfg = dataclasses.replace(CONFIG.corpus, n_docs=APPEND_DOCS,
+                               seed=args.seed + 101)
+    docs, _ = generate_text_corpus(ccfg)
+    new_docs = [d.tokens for d in docs]
+
+    names = ["asym_exp_similarity", "asym_exp_segment_sum",
+             "asym_megascan_segsum"]
+    zero_counts(names)
+    with ShardTaskExecutor(workers=4, adaptive_workers=True) as ex:
+        cache = SemanticQueryCache()
+        engine = QueryBatch(corpus, index, executor=ex, cache=cache)
+        probe = [BatchQuery.count([int(w)]) for w in (11, 97, 503)]
+        engine.execute(probe, args.rate, rng=np.random.default_rng(1))
+        engine.execute(probe, args.rate, rng=np.random.default_rng(2))
+        hits_before = cache.stats["hits"]
+        if hits_before != len(probe):
+            raise AssertionError(f"cache: {cache.stats} before the swap")
+
+        # ---- append + refresh, inference timed per document ----
+        t = time.perf_counter()
+        grown, new_ids, affected = corpus.append_documents(
+            new_docs, shard_tokens=CONFIG.shard_tokens)
+        append_s = time.perf_counter() - t
+        inner, per_doc = pv_dbow.infer_doc_vector, []
+
+        def timed_infer(*a, **kw):
+            t0 = time.perf_counter()
+            vec = inner(*a, **kw)
+            torch.cuda.synchronize()
+            per_doc.append(time.perf_counter() - t0)
+            return vec
+
+        walls = {}
+        pv_dbow.infer_doc_vector = timed_infer
+        try:
+            t = time.perf_counter()
+            new = refresh_appended(index, grown, model, CONFIG.pv, new_docs,
+                                   affected, infer_steps=INFER_STEPS,
+                                   timings=walls)
+            refresh_s = time.perf_counter() - t
+        finally:
+            pv_dbow.infer_doc_vector = inner
+        t = time.perf_counter()
+        new._fused_device_arrays()
+        torch.cuda.synchronize()
+        walls["first_upload_s"] = time.perf_counter() - t
+        engine.swap_world(grown, new)
+        gen = clock.bump_content()
+
+        # ---- the refresh's checks ----
+        n0, s0 = index.n_docs, index.shard_vecs.shape[0]
+        spilled = grown.n_shards - corpus.n_shards
+        if not (len(new_ids) == APPEND_DOCS and spilled > 0
+                and corpus.n_shards - 1 in affected):
+            raise AssertionError(f"append: {len(new_ids)} docs, {spilled} "
+                                 f"new shards, affected {affected}")
+        untouched = np.setdiff1d(np.arange(s0), np.asarray(affected))
+        for name, a_, b_ in (
+                ("doc vectors", new.doc_vecs[:n0], index.doc_vecs),
+                ("doc signatures", new.doc_sig[:n0], index.doc_sig),
+                ("shard vectors", new.shard_vecs[untouched],
+                 index.shard_vecs[untouched]),
+                ("shard signatures", new.shard_sig[untouched],
+                 index.shard_sig[untouched])):
+            if a_.tobytes() != b_.tobytes():
+                raise AssertionError(f"refresh changed old {name}")
+        touched = sorted(set(affected) | set(range(s0, grown.n_shards)))
+        means = np.stack([new.doc_vecs[grown.shards[sid].doc_ids].mean(axis=0)
+                          for sid in touched]).astype(np.float32)
+        planes = torch.as_tensor(np.asarray(new.planes, np.float32),
+                                 device=dev)
+        if not (np.array_equal(new.shard_vecs[touched], means)
+                and np.array_equal(new.shard_sig[touched],
+                                   _sign_rows(means, planes))):
+            raise AssertionError("touched shard rows differ from the build "
+                                 "ops over the new membership")
+        df = index.doc_freq.copy()
+        for tok in new_docs:
+            df[np.unique(np.asarray(tok, np.int64))] += 1
+        if not np.array_equal(new.doc_freq, df):
+            raise AssertionError("doc-frequency deltas are not exact")
+        log(f"   appended {len(new_ids)} docs: open shard "
+            f"{corpus.n_shards - 1} grew, {spilled} new shards "
+            f"({grown.n_shards} in all); old rows and {untouched.shape[0]} "
+            f"untouched shard rows byte-identical, {len(touched)} touched "
+            f"rows = mean + _sign_rows bit for bit, doc frequencies exact")
+
+        counts = np.bincount(np.concatenate([s.tokens for s in grown.shards]),
+                             minlength=grown.vocab_size)
+        queries = make_queries(counts, WARM_BATCH,
+                               np.random.default_rng(args.seed + 15),
+                               grown.n_docs / 3200)
+        vec_q = [q for q in queries if q.kind != "bool"]
+        vecs = new.query_vectors([q.word_ids() for q in vec_q])
+        got = new.shard_similarities_batch([q.word_ids() for q in vec_q])
+        want = fresh_segment_sums(new, grown, vecs)
+        np.testing.assert_allclose(got, want, rtol=RTOL,
+                                   err_msg="refreshed index's planning")
+        log(f"   the refreshed index's row-2 planning of {len(vec_q)} "
+            f"queries equals the plain version over arrays rebuilt from the "
+            f"new corpus (rtol 1e-4), [{got.shape[0]}, {got.shape[1]}]")
+
+        spec = MegascanSpec(new, vecs)
+        plans = [touched] * len(vec_q)
+        group = ex.map_shard_batch(grown, plans, spec.scan_fns(),
+                                   megakernel=True)
+        with uncounted(names):
+            per = ex.map_shard_batch(grown, plans, spec.scan_fns(),
+                                     megakernel=False)
+        n_pairs = results_equal(group, per, "megascan over touched shards")
+        log(f"   megascan over the {len(touched)} touched and new shards: "
+            f"group == per-shard bitwise on {n_pairs} (query, shard) pairs")
+
+        engine.execute(probe, args.rate, rng=np.random.default_rng(3))
+        if (cache.stats["hits"] != hits_before
+                or cache.stats["stale_epoch"] < 1):
+            raise AssertionError(f"a pre-swap cache entry was served after "
+                                 f"the content bump: {cache.stats}")
+        log(f"   content generation {gen.record()}: the pre-swap cache "
+            f"entries were fenced ({cache.stats['stale_epoch']} stale)")
+
+        seen = []
+        record_planning(engine, seen)
+        t = time.perf_counter()
+        res = engine.execute(queries, args.rate,
+                             rng=np.random.default_rng(args.seed + 16))
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t
+    launches = read_counts(names)
+    require_launched(launches, "ingest")
+    qs, rows, plan_s = seen[0]
+    check_rows(rows, plain_rows(new, qs), "batch on the new generation")
+    for q, r in zip(queries, res):
+        if q.kind == "count" and r.estimate is not None and not (
+                math.isfinite(r.estimate.value) and r.estimate.value >= 0):
+            raise AssertionError(f"count estimate {r.estimate.value}")
+    ms = [1e3 * x for x in per_doc]
+    if len(ms) != APPEND_DOCS:
+        raise AssertionError(f"{len(ms)} documents inferred")
+    log(f"   inference at {INFER_STEPS} steps, one document at a time: "
+        f"{np.median(ms):.3f} ms a document median, p90 {np.percentile(ms, 90):.3f} "
+        f"ms, max {max(ms):.3f} ms, {sum(ms) / 1e3:.3f} s for "
+        f"{len(ms)} documents")
+    log(f"   refresh wall {refresh_s:.3f} s: " + ", ".join(
+        f"{k}={v:.4f}" for k, v in walls.items())
+        + f"; append {append_s:.4f} s")
+    log(f"   batch of {len(queries)} on the new generation: wall "
+        f"{batch_s:.3f} s (planning {plan_s:.3f} s), rows match the plain "
+        f"path")
+    log(f"   phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+    add_path(kernels, "ingest", launches)
+
+
+def stack_phase(dev: torch.device, args, ctx: dict, kernels: list) -> None:
+    """Phase 16: the whole serving stack on phase 14's build: 4 simulated
+    hosts, 2 replicas, balanced, cache, planner, window, fleet and
+    ingest; 96 mixed queries stream through the window while the
+    ingestor appends 4 x 256 documents and a fault plan crashes a host;
+    then the megascan group route through the host group and a census."""
+    from repro_torch.configs.emapprox import CONFIG
+    from repro_torch.core.queries import BatchQuery
+    from repro_torch.data.corpus import generate_text_corpus
+    from repro_torch.kernels.megascan import MegascanSpec
+    from repro_torch.launch import build_serving_stack
+    from repro_torch.runtime import FaultPlan
+
+    t_phase = time.perf_counter()
+    corpus, index, model = ctx["corpus"], ctx["index"], ctx["model"]
+    ccfg = dataclasses.replace(CONFIG.corpus, n_docs=STACK_STEPS * STACK_DOCS,
+                               seed=args.seed + 202)
+    docs, _ = generate_text_corpus(ccfg)
+    feed = [d.tokens for d in docs]
+    counts = np.bincount(np.concatenate([s.tokens for s in corpus.shards]),
+                         minlength=corpus.vocab_size)
+    queries = make_queries(counts, STACK_QUERIES,
+                           np.random.default_rng(args.seed + 16),
+                           corpus.n_docs / 3200)
+    names = ["asym_exp_similarity", "asym_exp_segment_sum",
+             "asym_megascan_segsum"]
+    zero_counts(names)
+    with build_serving_stack(
+            corpus, index, hosts=4, replicas=2, balanced=True, cache=True,
+            planner=True, window=True, fleet=True, allow_partial=True,
+            max_retries=4, rate=args.rate, seed=args.seed, ingest=True,
+            ingest_model=model, ingest_pv_cfg=CONFIG.pv,
+            ingest_infer_steps=INFER_STEPS,
+            ingest_shard_tokens=CONFIG.shard_tokens,
+            ingest_yield_s=STACK_YIELD_S) as stack:
+        crash_host = 2
+        plan = FaultPlan(seed=args.seed).crash(crash_host,
+                                               at_job=STACK_CRASH_JOB)
+        plan.install(stack.executor)
+        sizes, inner = [], stack.engine.execute
+
+        def recording(qs, *a, **kw):
+            sizes.append(len(qs))
+            return inner(qs, *a, **kw)
+
+        stack.engine.execute = recording
+        futs, steps = [], []
+        per = STACK_QUERIES // STACK_STEPS
+        t_stream = time.perf_counter()
+        for i in range(STACK_STEPS):
+            futs += [stack.window.submit(q)
+                     for q in queries[i * per:(i + 1) * per]]
+            t = time.perf_counter()
+            rec = stack.ingestor.step(feed[i * STACK_DOCS:
+                                           (i + 1) * STACK_DOCS])
+            steps.append((time.perf_counter() - t, rec))
+        results = [f.result(timeout=600) for f in futs]
+        if plan.record()["fired"]["crash"] <= 0:
+            raise AssertionError("the scripted crash never fired")
+        stream_s = time.perf_counter() - t_stream
+        stack.engine.execute = inner
+        if len(results) != STACK_QUERIES or any(r is None for r in results):
+            raise AssertionError("a streamed query did not resolve")
+        stack.fleet.crash(crash_host)          # the detector catches up
+        final = stack.corpus
+        spilled = sum(r["new_shards"] for _, r in steps)
+        if (spilled <= 0 or stack.executor.placement.n_shards !=
+                final.n_shards):
+            raise AssertionError(f"placement did not extend: {spilled} new "
+                                 f"shards, placement "
+                                 f"{stack.executor.placement.n_shards} of "
+                                 f"{final.n_shards}")
+
+        # ---- the megascan group route through the host group ----
+        rng = np.random.default_rng(args.seed + 17)
+        cand = np.nonzero((counts > 50 * corpus.n_docs / 3200)
+                          & (counts < 1200 * corpus.n_docs / 3200))[0]
+        triples = [rng.choice(cand, 3, replace=False).tolist()
+                   for _ in range(12)]
+        vecs = stack.index.query_vectors(triples)
+        plans = ragged_plans(12, final.n_shards, rng)
+        spec = MegascanSpec(stack.index, vecs)
+        before = _wrapper("asym_megascan_segsum").launches
+        group = stack.executor.map_shard_batch(final, plans, spec.scan_fns(),
+                                               megakernel=True)
+        mega_launches = _wrapper("asym_megascan_segsum").launches - before
+        host_walls = dict(stack.executor.last_job["per_host_wall_s"])
+        live = set(range(stack.executor.placement.n_hosts)) - set(
+            stack.executor.down)
+        if not (mega_launches == spec.stats["group_launches"]
+                == len(host_walls) and set(host_walls) <= live):
+            raise AssertionError(f"row 7 launched {mega_launches} times for "
+                                 f"{len(host_walls)} host groups with work "
+                                 f"({sorted(host_walls)}, live "
+                                 f"{sorted(live)})")
+        launches = read_counts(names)
+        per_shard = stack.executor.map_shard_batch(
+            final, plans, spec.scan_fns(), megakernel=False)
+        results_equal(group, per_shard, "host-group megascan vs per-shard")
+
+        # ---- a census of the final corpus through the stack ----
+        words = [int(w) for w in cand[:6]]
+        gen = stack.engine._generation()
+        census = stack.engine.execute([BatchQuery.count([w]) for w in words],
+                                      1.0)
+        for w, r in zip(words, census):
+            if r.estimate.value != final.count_phrase([w]):
+                raise AssertionError(f"census of word {w}: "
+                                     f"{r.estimate.value} != exact "
+                                     f"{final.count_phrase([w])}")
+        if gen != stack.clock.current() or gen.content != STACK_STEPS:
+            raise AssertionError(f"census generation {gen}, clock "
+                                 f"{stack.clock.current()}")
+        report = stack.engine.last_report
+        ctl = stack.controller.current_plan
+        log(f"   {STACK_QUERIES} queries through the window in "
+            f"{stream_s:.3f} s, all resolved; batch sizes {sizes}; "
+            f"controller plan: delay {ctl.delay_s if ctl else None} s, max "
+            f"batch {ctl.max_batch if ctl else None}; window "
+            f"{ {k: stack.window.stats[k] for k in ('batches', 'served', 'closed_by_size', 'closed_by_deadline', 'batch_retries', 'degraded', 'shed')} }")
+        log(f"   ingest steps (wall s, docs, new shards, generation): "
+            + "; ".join(f"{w:.3f}, {r['appended']}, {r['new_shards']}, "
+                        f"{r['generation']}" for w, r in steps)
+            + f"; ingest_yield_s {STACK_YIELD_S}")
+        log(f"   host {crash_host} crashed at group job {STACK_CRASH_JOB} "
+            f"(fault plan fired {plan.record()['fired']}); executor "
+            f"{ {k: stack.executor.stats[k] for k in ('jobs', 'host_failures', 'requeued_shards', 'shed_shards', 'lost_shards')} }")
+        log(f"   megascan through the host group: {mega_launches} launches "
+            f"of row 7 for {len(host_walls)} host groups with work, bitwise "
+            f"the per-shard route; host-group walls (s) {host_walls}")
+        log(f"   census of {len(words)} words on {final.n_docs} docs, "
+            f"{final.n_shards} shards equals the exact counts, generation "
+            f"{gen.record()}")
+        log(f"   balance audit: {json.dumps(report.balance, default=str)}")
+        log(f"   budget audit: "
+            f"{json.dumps(stack.window.last_budget, default=str)}")
+        log(f"   cache: {stack.cache.record()}")
+    require_launched(launches, "stack")
+    log(f"   phase 16 wall {time.perf_counter() - t_phase:.1f} s")
+    add_path(kernels, "stack", launches)
+
+
+def recommend_phase(dev: torch.device, args, kernels: list) -> None:
+    """Phase 17: recommendation on a review corpus of REVIEW_USERS users
+    and REVIEW_ITEMS items: shard the user documents, train PV-DBOW at
+    the EmApprox settings, build the asym index (and a sym one), run
+    the recsys_bench protocol, and hold the user-vector scoring against
+    its plain versions."""
+    from repro_torch.configs.emapprox import CONFIG
+    from repro_torch.core.index import build_index
+    from repro_torch.core.queries.recommend import (mse, precision_at_k,
+                                                    recommend_query)
+    from repro_torch.data.corpus import (ReviewCorpusConfig,
+                                         generate_review_corpus)
+    from repro_torch.data.store import ShardedCorpus
+    from repro_torch.kernels.hamming import kernel as hk
+    from repro_torch.kernels.hamming import ref as href
+
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    data = generate_review_corpus(ReviewCorpusConfig(
+        n_users=REVIEW_USERS, n_items=REVIEW_ITEMS, seed=args.seed + 1))
+    gen_s = time.perf_counter() - t
+    corpus = ShardedCorpus.from_documents(data.user_docs, data.vocab_size,
+                                          shard_tokens=CONFIG.shard_tokens)
+    log(f"   review corpus: {REVIEW_USERS} users, {REVIEW_ITEMS} items, "
+        f"{data.ratings.shape[0]} ratings, {corpus.n_tokens} tokens, "
+        f"{corpus.n_shards} shards; generated in {gen_s:.2f} s")
+    names = ["asym_exp_similarity", "hamming_similarity", "negsamp_grads"]
+    zero_counts(names)
+    model, _, tw = train(corpus, dev, "recommend train")
+    t = time.perf_counter()
+    index = {mode: build_index(corpus, model, CONFIG.lsh,
+                               temperature=CONFIG.pv.temperature,
+                               lsh_mode=mode, device=dev)
+             for mode in ("asym", "sym")}
+    index_s = time.perf_counter() - t
+
+    rng = np.random.default_rng(17)
+    users = rng.choice(REVIEW_USERS, REVIEW_TEST_USERS, replace=False)
+    holdout = {}
+    for u in users:
+        mask = data.user_of == u
+        items, ratings = data.item_of[mask], data.ratings[mask]
+        k = max(1, int(0.2 * len(items)))
+        sel = rng.choice(len(items), k, replace=False)
+        holdout[u] = (items[sel], ratings[sel], items)
+
+    def evaluate(ix, rate, method):
+        mses, precs, ts = [], [], []
+        for u in users:
+            t_items, t_ratings, bought = holdout[u]
+            r = recommend_query(corpus, ix, data, int(u), rate, k=10,
+                                method=method, rng=rng,
+                                exclude_items=np.setdiff1d(bought, t_items))
+            mses.append(mse(r.predictions, t_items, t_ratings))
+            precs.append(precision_at_k(r.top_k, t_items, 10))
+            ts.append(r.elapsed_s)
+        return (float(np.nanmean(mses)), float(np.mean(precs)),
+                float(np.mean(ts)))
+
+    table = [("asym", 1.0, "precise", evaluate(index["asym"], 1.0,
+                                                "emapprox"))]
+    for rate in REVIEW_RATES:
+        for method in ("emapprox", "srcs"):
+            table.append(("asym", rate, method,
+                          evaluate(index["asym"], rate, method)))
+    table.append(("sym", REVIEW_RATES[1], "emapprox",
+                  evaluate(index["sym"], REVIEW_RATES[1], "emapprox")))
+    launches = read_counts(names)
+    require_launched(launches, "recommend")
+    log(f"   training {tw['train_s']:.3f} s, both indexes {index_s:.3f} s")
+    for mode, rate, method, (m_, p_, t_) in table:
+        log(f"   fig7 {mode} {method} rate {rate}: MSE {m_:.4f}, P@10 "
+            f"{p_:.4f}, {1e3 * t_:.3f} ms a query")
+
+    vecs = index["asym"].doc_vecs[users]
+    got = torch.from_numpy(
+        index["asym"].vector_shard_similarities_batch(vecs))
+    want = plain_similarities(index["asym"], vecs, index["asym"]._device_sig(
+        index["asym"].shard_sig, "shard")).double().cpu()
+    err = close(got, want, "user vectors x shards, row 1")
+    qsig = index["sym"].query_sig_tensor(vecs)
+    db = index["sym"]._device_sig(index["sym"].shard_sig, "shard")
+    sym = hk.hamming_similarity_kernel(qsig, db, index["sym"].bits,
+                                       temperature=index["sym"].temperature)
+    sym_plain = href.hamming_similarity_ref(qsig, db, index["sym"].bits,
+                                            index["sym"].temperature)
+    sym_rows = index["sym"].vector_shard_similarities_batch(vecs)
+    if not (torch.equal(sym, sym_plain) and np.array_equal(
+            sym_rows, sym_plain.cpu().numpy().astype(np.float64))):
+        raise AssertionError("user vectors x shards, row 5: not exactly "
+                             "the plain version")
+    log(f"   {len(users)} user vectors x {corpus.n_shards} shards: row 1 "
+        f"within rtol 1e-4 of plain (max abs err {err:.3g}), row 5 equal "
+        f"to plain exactly")
+    log(f"   phase 17 wall {time.perf_counter() - t_phase:.1f} s")
+    add_path(kernels, "recommend", launches)
 
 
 def main(argv=None) -> int:
@@ -2156,7 +2724,15 @@ def main(argv=None) -> int:
     kernels += kmeans_phase(dev, ctx)
     log(f"== offline build and serve: {args.build_docs} docs, train, "
         f"pre-index, allocate, index, a batch of {BUILD_BATCH}")
-    build_serve_phase(dev, args, kernels)
+    build = build_serve_phase(dev, args, kernels)
+    log(f"== live ingest: {APPEND_DOCS} docs appended to the {args.n_docs}-"
+        f"doc corpus, refresh at {INFER_STEPS} inference steps")
+    ingest_phase(dev, args, ctx, kernels)
+    log(f"== serving stack: 4 hosts, 2 replicas, window, planner, cache, "
+        f"fleet, ingest on the {args.build_docs}-doc build")
+    stack_phase(dev, args, build, kernels)
+    log(f"== recommendation: {REVIEW_USERS} users x {REVIEW_ITEMS} items")
+    recommend_phase(dev, args, kernels)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

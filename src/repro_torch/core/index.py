@@ -42,7 +42,12 @@ a shard group's doc signatures into the block-aligned payload of the
 one-launch megascan (``kernels/megascan``), cached per (shards, tile,
 content generation).
 
-Not in this module yet: the live-ingest refresh.
+The device caches are built once per index object, each under the
+index's own lock, so many threads (a batching window, an ingest writer,
+the executor's workers) may plan on one fresh index at once: no thread
+sees an entry half published.  ``refresh_appended`` is the live-ingest
+refresh: it returns a new index over the grown corpus whose caches
+start empty.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ import dataclasses
 import json
 import os
 import threading
-from typing import Any, Dict, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,6 +103,11 @@ class ApproxIndex:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        # this object's lock for its derived caches: every entry is built
+        # whole and published under it, so a thread that finds an entry
+        # finds all of it.  Re-entrant: a build may read another cache.
+        # Not a field, so ``dataclasses.replace`` makes a lock of its own.
+        object.__setattr__(self, "_caches_lock", threading.RLock())
 
     # ------------------------------------------------------------------
     # content generation
@@ -114,52 +125,63 @@ class ApproxIndex:
             object.__setattr__(self, "_gen_clock", c)
         return c
 
+    def use_clock(self, clock: GenerationClock) -> "ApproxIndex":
+        """Bind this index to a shared ``GenerationClock``; returns self."""
+        object.__setattr__(self, "_gen_clock", clock)
+        return self
+
     # ------------------------------------------------------------------
     # device-resident operands
     # ------------------------------------------------------------------
     def _device_cache(self) -> Dict[str, torch.Tensor]:
-        dev = getattr(self, "_dev", None)
-        if dev is None:
-            dev = {}
-            object.__setattr__(self, "_dev", dev)
-        return dev
+        with self._caches_lock:
+            dev = getattr(self, "_dev", None)
+            if dev is None:
+                dev = {}
+                object.__setattr__(self, "_dev", dev)
+            return dev
 
     def _device_planes(self) -> torch.Tensor:
-        dev = self._device_cache()
-        if "planes" not in dev:
-            dev["planes"] = torch.as_tensor(
-                np.asarray(self.planes, np.float32), device=self.device)
-        return dev["planes"]
+        with self._caches_lock:
+            dev = self._device_cache()
+            if "planes" not in dev:
+                dev["planes"] = torch.as_tensor(
+                    np.asarray(self.planes, np.float32), device=self.device)
+            return dev["planes"]
 
     def _device_sig(self, target_sig: np.ndarray, role: str) -> torch.Tensor:
         """``target_sig`` on the device, uploaded once per role ("shard"
         | "doc" | "word") — re-uploading a signature set per batch would
         push it host->device every serving window."""
-        dev = self._device_cache()
         key = f"{role}_sig"
-        if key not in dev:
-            dev[key] = lsh_mod.to_packed_tensor(target_sig, self.device)
-        return dev[key]
+        with self._caches_lock:
+            dev = self._device_cache()
+            if key not in dev:
+                dev[key] = lsh_mod.to_packed_tensor(target_sig, self.device)
+            return dev[key]
 
     def _fused_device_arrays(self) -> Dict[str, torch.Tensor]:
         """Operands of the fused segment sum, uploaded once and cached:
         the planes, the shard-sorted doc signatures ``sig``, their int32
         shard slots ``seg`` and the int32 CSR offsets [n_shards + 1]
-        delimiting each shard's rows."""
-        dev = self._device_cache()
-        if "sig" not in dev:
-            _, _, counts, seg_sorted, sig_sorted = self._shard_sorted_docs()
-            offsets = np.zeros(counts.shape[0] + 1, np.int64)
-            np.cumsum(counts, out=offsets[1:])
-            if offsets[-1] > np.iinfo(np.int32).max:
-                raise ValueError(f"too many docs for int32 offsets: "
-                                 f"{offsets[-1]}")
-            dev["sig"] = lsh_mod.to_packed_tensor(sig_sorted, self.device)
-            dev["seg"] = torch.as_tensor(seg_sorted, device=self.device)
-            dev["offsets"] = torch.as_tensor(offsets.astype(np.int32),
-                                             device=self.device)
-        self._device_planes()
-        return dev
+        delimiting each shard's rows.  All four are published together
+        (one ``update`` under the cache lock)."""
+        with self._caches_lock:
+            dev = self._device_cache()
+            if "sig" not in dev:
+                _, _, counts, seg_sorted, sig_sorted = self._shard_sorted_docs()
+                offsets = np.zeros(counts.shape[0] + 1, np.int64)
+                np.cumsum(counts, out=offsets[1:])
+                if offsets[-1] > np.iinfo(np.int32).max:
+                    raise ValueError(f"too many docs for int32 offsets: "
+                                     f"{offsets[-1]}")
+                dev.update(
+                    sig=lsh_mod.to_packed_tensor(sig_sorted, self.device),
+                    seg=torch.as_tensor(seg_sorted, device=self.device),
+                    offsets=torch.as_tensor(offsets.astype(np.int32),
+                                            device=self.device))
+            self._device_planes()
+            return dev
 
     # ------------------------------------------------------------------
     # query-time scoring
@@ -347,7 +369,12 @@ class ApproxIndex:
         if self._doc_shard_ids is None:
             raise ValueError("doc-granular scoring requires attach_corpus()")
         cache = getattr(self, "_shard_sort", None)
-        if cache is None:
+        if cache is not None:
+            return cache
+        with self._caches_lock:
+            cache = getattr(self, "_shard_sort", None)
+            if cache is not None:
+                return cache
             ids = np.asarray(self._doc_shard_ids, np.int64)
             n_shards = self.shard_vecs.shape[0]
             order = np.argsort(ids, kind="stable")
@@ -359,7 +386,7 @@ class ApproxIndex:
                           if self.doc_sig is not None else None)
             cache = (order, starts, counts, seg_sorted, sig_sorted)
             object.__setattr__(self, "_shard_sort", cache)
-        return cache
+            return cache
 
     def _sum_docs_to_shards_batch(self, doc_values: np.ndarray) -> np.ndarray:
         """[B, n_docs] -> [B, n_shards] row-wise scatter-add as one
@@ -414,10 +441,11 @@ class ApproxIndex:
         — all derive from the map — and bumps the *content* generation:
         anything keyed on what this index answers from is stale the
         moment a new corpus attaches."""
-        self._doc_shard_ids = corpus.doc_shard_map()
-        for cached in ("_shard_sort", "_dev", "_megascan_pay"):
-            if hasattr(self, cached):
-                object.__delattr__(self, cached)
+        with self._caches_lock:
+            self._doc_shard_ids = corpus.doc_shard_map()
+            for cached in ("_shard_sort", "_dev", "_megascan_pay"):
+                if hasattr(self, cached):
+                    object.__delattr__(self, cached)
         self.clock.bump_content()
         return self
 
@@ -429,6 +457,22 @@ class ApproxIndex:
         """p(w|s) up to constant for a single word (Boolean retrieval)."""
         return self._exp_sim(self.word_vecs[word_id], self.shard_sig,
                              self.shard_vecs, "shard")
+
+    def vector_shard_similarities(self, vec: np.ndarray) -> np.ndarray:
+        """exp-similarity of an arbitrary vector (e.g. a user vector) to
+        every shard — used by recommendation."""
+        return self._exp_sim(vec, self.shard_sig, self.shard_vecs, "shard")
+
+    def vector_shard_similarities_batch(self, vecs: np.ndarray) -> np.ndarray:
+        """[B, dim] arbitrary vectors -> [B, n_shards] exp-similarity, in
+        one launch of the LSH mode's similarity kernel on CUDA."""
+        return self._exp_sim_batch(vecs, self.shard_sig, self.shard_vecs,
+                                   "shard")
+
+    def vector_doc_similarities(self, vec: np.ndarray) -> np.ndarray:
+        if self.doc_sig is None and self.doc_vecs is None:
+            raise ValueError("index was built without document vectors")
+        return self._exp_sim(vec, self.doc_sig, self.doc_vecs, "doc")
 
     # ------------------------------------------------------------------
     # persistence: the JAX package's npz format, both ways
@@ -492,6 +536,14 @@ class ApproxIndex:
             arrays = {k: z[k] for k in z.files if k != "meta"}
             meta = json.loads(str(z["meta"]))
         return ApproxIndex.from_arrays(arrays, meta, device=device)
+
+    def nbytes(self) -> int:
+        """Bytes of the signatures and planes (the index proper; the
+        real-valued vectors are build-side state)."""
+        total = self.word_sig.nbytes + self.shard_sig.nbytes + self.planes.nbytes
+        if self.doc_sig is not None:
+            total += self.doc_sig.nbytes
+        return total
 
 # ----------------------------------------------------------------------
 # index build (paper Fig. 2 step p2)
@@ -614,3 +666,112 @@ def build_index(
         center_mean=mean,
         device=dev,
     )
+
+
+def refresh_appended(
+    index: ApproxIndex,
+    corpus: ShardedCorpus,
+    model,
+    cfg,
+    appended_docs: Sequence[np.ndarray],
+    affected_shards: Sequence[int],
+    *,
+    infer_steps: int = 50,
+    infer_pause_s: float = 0.0,
+    timings: Optional[Dict[str, float]] = None,
+    init_vec: Optional[torch.Tensor] = None,
+    negatives: Optional[Callable[[int, int], torch.Tensor]] = None,
+) -> ApproxIndex:
+    """Incremental index refresh for the live-ingest append path.
+
+    ``corpus`` is the grown corpus (``ShardedCorpus.append_documents``),
+    ``appended_docs`` the token arrays appended — in order, so their
+    dense global ids start at ``index.n_docs`` — and ``affected_shards``
+    the shard ids whose membership changed.  New doc vectors come from
+    frozen-model PV-DBOW inference (``pv_dbow.infer_doc_vectors`` on
+    ``model``'s device, the word matrix fixed), pass through the build's
+    centring (``index.center_mean``) and are signed by ``_sign_rows``,
+    the routine ``build_index`` signs with, on the index's device.  Only
+    the affected and the new shards' rows are recomputed, with the
+    build's ops (``shard_vectors``' numpy mean, then ``_sign_rows``), so
+    untouched rows are byte-identical and touched rows equal a rebuild's;
+    the doc frequencies take exact integer deltas.  ``infer_pause_s`` is
+    the writer's cooperative yield between inference steps
+    (result-neutral).
+
+    Returns a NEW ``ApproxIndex`` that shares the old one's generation
+    clock; its device caches, shard sort and megascan payloads start
+    empty (they are instance state, which ``dataclasses.replace`` does
+    not carry), and the caller bumps the content generation after the
+    swap.  ``timings``, when given, receives the wall seconds of
+    ``infer_s``, ``sign_s``, ``centroids_s`` and ``doc_freq_s``.  For
+    parity only: ``init_vec`` and ``negatives(i, step)`` are handed to
+    ``infer_doc_vectors``."""
+    from repro_torch.core import pv_dbow
+
+    if index.doc_vecs is None or index.doc_sig is None:
+        raise ValueError("live refresh requires an index built with "
+                         "keep_doc_vectors=True")
+    k = len(appended_docs)
+    if k == 0:
+        return index
+    if index.n_docs + k != corpus.n_docs:
+        raise ValueError(
+            f"appended docs do not line up: index has {index.n_docs}, "
+            f"corpus has {corpus.n_docs}, appended {k}")
+    walls = timings if timings is not None else {}
+    t = time.perf_counter()
+    vecs = pv_dbow.infer_doc_vectors(model, appended_docs, cfg,
+                                     steps=infer_steps, pause_s=infer_pause_s,
+                                     init_vec=init_vec, negatives=negatives)
+    if index.center_mean is not None:
+        vecs = _center_and_unit(vecs, index.center_mean)
+    else:
+        vecs = np.asarray(vecs, np.float32)
+    walls["infer_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    planes = torch.as_tensor(np.asarray(index.planes, np.float32),
+                             device=index.device)
+    doc_vecs = np.concatenate([index.doc_vecs, vecs])
+    doc_sig = np.concatenate([index.doc_sig, _sign_rows(vecs, planes)])
+    walls["sign_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    old_shards = index.shard_vecs.shape[0]
+    dim = index.shard_vecs.shape[1]
+    shard_vecs = np.zeros((corpus.n_shards, dim), np.float32)
+    shard_vecs[:old_shards] = index.shard_vecs
+    touched = sorted({int(s) for s in affected_shards}
+                     | set(range(old_shards, corpus.n_shards)))
+    for sid in touched:
+        # shard_vectors' op (numpy mean over the member rows), so a
+        # touched row equals a rebuild's
+        shard_vecs[sid] = doc_vecs[corpus.shards[sid].doc_ids].mean(axis=0)
+    shard_sig = np.zeros((corpus.n_shards, index.shard_sig.shape[1]),
+                         index.shard_sig.dtype)
+    shard_sig[:old_shards] = index.shard_sig
+    if touched:
+        shard_sig[touched] = _sign_rows(shard_vecs[np.asarray(touched)], planes)
+    walls["centroids_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    doc_freq = index.doc_freq.copy()
+    for tokens in appended_docs:
+        doc_freq[np.unique(np.asarray(tokens, np.int64))] += 1
+    walls["doc_freq_s"] = time.perf_counter() - t
+
+    attach = (index.granularity == "doc"
+              or index._doc_shard_ids is not None)
+    new = dataclasses.replace(
+        index,
+        doc_vecs=doc_vecs, doc_sig=doc_sig,
+        shard_vecs=shard_vecs, shard_sig=shard_sig,
+        doc_freq=doc_freq, n_docs=corpus.n_docs,
+        avg_doc_len=corpus.n_tokens / max(corpus.n_docs, 1),
+        _doc_shard_ids=corpus.doc_shard_map() if attach else None,
+    )
+    # generation continuity: the new index answers under the same
+    # authority; the ingest swap mints the content bump
+    return new.use_clock(index.clock)
+

@@ -247,15 +247,19 @@ def _infer_step(word_vecs: torch.Tensor, tokens: torch.Tensor,
                 vec: torch.Tensor, kneg: torch.Tensor, *, lr: float,
                 temperature: float) -> torch.Tensor:
     """One frozen-model inference step (word matrix fixed, one doc
-    vector [1, dim] trained) on the [T, k] noise-word ids ``kneg``."""
-    v = vec.detach().requires_grad_(True)
-    w = word_vecs[tokens]
-    pos = w @ v[0] * temperature
-    neg = torch.einsum("bkd,d->bk", word_vecs[kneg], v[0]) * temperature
-    loss = softplus(-pos).mean() + softplus(neg).sum(-1).mean()
-    (g,) = torch.autograd.grad(loss, (v,))
-    with torch.no_grad():
-        return _unit_rows(vec - lr * g)
+    vector [1, dim] trained) on the [T, k] noise-word ids ``kneg``.
+    The loss is mean(softplus(-pos)) + mean(sum_k softplus(neg)) with
+    pos = t * w.v and neg = t * wn.v; its gradient is taken in closed
+    form (d softplus(x)/dx = sigmoid(x)), so a step is a few launches
+    and builds no autograd graph."""
+    v = vec[0]
+    w = word_vecs[tokens]                        # [T, dim]
+    wn = word_vecs[kneg]                         # [T, k, dim]
+    g_pos = torch.sigmoid(-(w @ v) * temperature)        # [T]
+    g_neg = torch.sigmoid((wn @ v) * temperature)        # [T, k]
+    g = (torch.einsum("bk,bkd->d", g_neg, wn) - g_pos @ w) * (
+        temperature / tokens.shape[0])
+    return _unit_rows(vec - lr * g)
 
 
 def infer_doc_vector(

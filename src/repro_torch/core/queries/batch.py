@@ -18,8 +18,14 @@ workload should amortize:
      plans and runs one *shared scan* per distinct shard
      (``ShardTaskExecutor.map_shard_batch``), evaluating all interested
      queries in that single visit — task count scales with the union,
-     not the sum.  The executed plan is kept on ``last_report.plan`` so
-     callers can audit it.
+     not the sum.  On a multi-host topology the same union splits by
+     shard residency instead of pooling locally: pass a
+     ``runtime.placement.HostGroupExecutor`` as ``executor`` and each
+     host shared-scans only its resident slice of the union, with the
+     cross-host gather feeding the per-query reduces unchanged.  The
+     executed plan is kept on ``last_report.plan`` so callers can audit
+     it, and a balanced host group's split decision lands on
+     ``last_report.balance``.
   3. **Scan work** — per-shard operators walk the lazily-built CSR
      postings (``data/store.shard_postings``), so the second query to
      touch a shard pays O(matching tokens), not O(shard tokens).
@@ -109,7 +115,10 @@ from repro_torch.runtime.qcache import query_cache_vectors, query_key, sampler_c
 class ExecutionReport:
     """Typed, JSON-clean record of one ``QueryBatch.execute`` call.
 
-    One report per batch, on ``QueryBatch.last_report``.
+    One report per batch, on ``QueryBatch.last_report`` (the older
+    ``last_plan`` / ``last_audit`` / ``last_budget`` / ``last_degraded``
+    names survive as deprecated read-only properties reading through
+    it; ``runtime/window.py`` reads ``last_budget``).
 
     ``plan`` is the *executed* plan — one array of scanned shard ids
     per query.  A semantic-cache exact hit executed nothing, so its
@@ -273,6 +282,38 @@ class QueryBatch:
         checks this before forwarding the controller's degradation
         pressure (and before preferring degradation over shedding)."""
         return self.planner is not None
+
+    # ------------------------------------------------------------------
+    # deprecated read-only views of last_report (pre-report callers)
+    # ------------------------------------------------------------------
+    @property
+    def last_plan(self) -> Optional[List[np.ndarray]]:
+        """Deprecated: read ``last_report.plan`` — the executed shard
+        plan (one array of scanned shard ids per query)."""
+        r = self.last_report
+        return list(r.plan) if r is not None else None
+
+    @property
+    def last_audit(self) -> Optional[Dict[str, Any]]:
+        """Deprecated: read ``last_report.balance`` — the balanced
+        host group's split audit, None otherwise."""
+        r = self.last_report
+        return r.balance if r is not None else None
+
+    @property
+    def last_budget(self) -> Optional[Dict[str, Any]]:
+        """Deprecated: read ``last_report.budget`` — the planner's
+        budget audit record, None without a planner."""
+        r = self.last_report
+        return r.budget if r is not None else None
+
+    @property
+    def last_degraded(self) -> Optional[Dict[str, Any]]:
+        """Deprecated: read ``last_report.degraded`` — the partial
+        gather record (lost shards, per-query breakdown), None on the
+        healthy path."""
+        r = self.last_report
+        return r.degraded if r is not None else None
 
     # ------------------------------------------------------------------
     # planning: one batched scoring pass -> per-query probability rows

@@ -8,9 +8,12 @@ phrase-occurrence distributions that make similarity-driven sampling
 beat random sampling (paper Sec. I: "random sampling can lead to large
 errors ... when sampling from a skewed distribution").
 
-``generate_text_corpus`` is the Wikipedia/CCNews analogue, draw for
-draw the JAX package's generator (same numpy RNG stream, same outputs);
-the review-corpus generator arrives with the recommendation queries.
+Two generators, each draw for draw the JAX package's (same numpy RNG
+stream, same outputs):
+  * ``generate_text_corpus``   -> Wikipedia/CCNews analogue.
+  * ``generate_review_corpus`` -> Amazon analogue (users x items x
+    ratings, review text correlated with user preference vectors) for
+    the recommendation queries.
 """
 from __future__ import annotations
 
@@ -124,3 +127,112 @@ def generate_text_corpus(
     for new_id, i in enumerate(order):
         docs.append(Document(new_id, tokens[offsets[i]: offsets[i + 1]]))
     return docs, doc_topics[order]
+
+
+@dataclasses.dataclass(frozen=True)
+class ReviewCorpusConfig:
+    vocab_size: int = 8192
+    n_topics: int = 16
+    n_users: int = 512
+    n_items: int = 256
+    reviews_per_user_mean: int = 20
+    review_len_mean: int = 40
+    zipf_exponent: float = 1.07
+    rating_noise: float = 0.35
+    seed: int = 1
+
+
+@dataclasses.dataclass
+class ReviewData:
+    """Amazon-analogue interaction data.
+
+    ``user_docs[u]`` concatenates all reviews written by user ``u`` — the
+    paper's definition of a document for the recommendation workload
+    (Table II: 'all reviews written by the same user').
+    """
+    user_docs: List[Document]
+    ratings: np.ndarray          # float32 [n_interactions]
+    user_of: np.ndarray          # int64   [n_interactions]
+    item_of: np.ndarray          # int64   [n_interactions]
+    user_topics: np.ndarray      # [n_users, n_topics] preference vectors
+    item_topics: np.ndarray      # [n_items, n_topics]
+    vocab_size: int = 0
+
+    def ratings_matrix(self) -> np.ndarray:
+        """Dense [n_users, n_items] matrix with NaN for missing."""
+        n_u = self.user_topics.shape[0]
+        n_i = self.item_topics.shape[0]
+        m = np.full((n_u, n_i), np.nan, np.float32)
+        m[self.user_of, self.item_of] = self.ratings
+        return m
+
+
+def _choice_cdf(p: np.ndarray) -> np.ndarray:
+    """The cdf numpy's ``Generator.choice(a, size, p=p)`` draws through:
+    ``cumsum`` normalised by its last entry.  ``cdf.searchsorted(
+    rng.random(size), side="right")`` is then the same draw from the
+    same stream, without rebuilding and re-checking ``p`` each call."""
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    return cdf
+
+
+def generate_review_corpus(cfg: ReviewCorpusConfig) -> ReviewData:
+    """The JAX package's generator, draw for draw.  The per-review word
+    draws take each topic's cdf once (``_choice_cdf``) instead of one
+    ``rng.choice(..., p=...)`` a (review, topic), which rebuilds the
+    vocabulary-wide cdf every call; the draws and the data are the
+    same."""
+    rng = np.random.default_rng(cfg.seed)
+    word_cfg = SyntheticCorpusConfig(
+        vocab_size=cfg.vocab_size, n_topics=cfg.n_topics,
+        zipf_exponent=cfg.zipf_exponent, seed=cfg.seed,
+    )
+    topic_dists = _topic_word_dists(word_cfg, rng)
+    topic_cdfs = [_choice_cdf(d) for d in topic_dists]
+    user_topics = rng.dirichlet(np.full(cfg.n_topics, 0.15), size=cfg.n_users)
+    item_topics = rng.dirichlet(np.full(cfg.n_topics, 0.15), size=cfg.n_items)
+
+    # affinity -> rating on a 1..5 scale
+    affinity = user_topics @ item_topics.T            # [U, I]
+    a_min, a_max = affinity.min(), affinity.max()
+    scaled = 1.0 + 4.0 * (affinity - a_min) / max(a_max - a_min, 1e-9)
+
+    users, items, ratings = [], [], []
+    user_tokens: List[List[np.ndarray]] = [[] for _ in range(cfg.n_users)]
+    for u in range(cfg.n_users):
+        k = max(2, int(rng.poisson(cfg.reviews_per_user_mean)))
+        k = min(k, cfg.n_items)
+        # users review items they're predisposed to encounter
+        p = affinity[u] / affinity[u].sum()
+        chosen = rng.choice(cfg.n_items, size=k, replace=False, p=p)
+        for i in chosen:
+            r = np.clip(scaled[u, i] + rng.normal(0, cfg.rating_noise), 1.0, 5.0)
+            users.append(u)
+            items.append(int(i))
+            ratings.append(float(r))
+            # review text: mixture of user and item topics
+            mix = 0.5 * user_topics[u] + 0.5 * item_topics[i]
+            length = max(8, int(rng.normal(cfg.review_len_mean, cfg.review_len_mean / 3)))
+            wt = _choice_cdf(mix).searchsorted(rng.random(length),
+                                               side="right")
+            toks = np.empty(length, np.int32)
+            for t in np.unique(wt):
+                m = wt == t
+                toks[m] = topic_cdfs[t].searchsorted(
+                    rng.random(int(m.sum())), side="right").astype(np.int32)
+            user_tokens[u].append(toks)
+
+    user_docs = [
+        Document(u, np.concatenate(user_tokens[u]) if user_tokens[u] else np.zeros(0, np.int32))
+        for u in range(cfg.n_users)
+    ]
+    return ReviewData(
+        user_docs=user_docs,
+        ratings=np.asarray(ratings, np.float32),
+        user_of=np.asarray(users, np.int64),
+        item_of=np.asarray(items, np.int64),
+        user_topics=user_topics,
+        item_topics=item_topics,
+        vocab_size=cfg.vocab_size,
+    )

@@ -16,6 +16,11 @@ couple of queries touching the shard; the flat-scan implementations are
 kept (``*_scan``) as parity references and for one-shot scans where
 building the cache would be wasted work.
 
+Live ingest: ``ShardedCorpus.append_documents`` grows the corpus
+copy-on-write (untouched shard objects shared by reference), and a
+grown shard's built postings take a delta merge (``merge_postings``)
+that is bit for bit a rebuild.
+
 Persistence: ``ShardedCorpus.save``/``load`` round-trip the per-shard
 CSR payload *and* the postings next to it, so a cold serving process
 opens the corpus with every shard's inverted index already attached —
@@ -145,6 +150,68 @@ class ShardedCorpus:
                 buckets[int(assignment[doc.doc_id])].append(doc)
         shards = [DocShard.from_documents(i, b) for i, b in enumerate(buckets)]
         return ShardedCorpus(shards, self.vocab_size)
+
+    def append_documents(
+        self,
+        docs_tokens: Sequence[np.ndarray],
+        *,
+        shard_tokens: "int | None" = None,
+    ) -> "tuple[ShardedCorpus, np.ndarray, List[int]]":
+        """Live-ingest append path: stream new documents into the open
+        (last) shard, copy-on-write.
+
+        Returns ``(new_corpus, new_doc_ids, affected_shard_ids)``.  The
+        new corpus *shares every untouched shard object by reference* —
+        only the grown open shard (and any spill shards) are new — so
+        readers holding the old corpus keep an immutable view
+        (RCU-style: the ingestor swaps the corpus reference, it never
+        mutates one in place).  Appended docs take dense global ids
+        starting at ``self.n_docs`` (``doc_shard_map`` requires dense
+        ids).  With ``shard_tokens`` set, the open shard fills to the
+        same token budget as ``from_documents`` (the crossing doc is
+        appended, then the shard closes) and the remainder spills into
+        new shards; ``None`` grows the open shard unboundedly — the
+        no-new-shards mode, where placement never needs to change.
+
+        A grown shard whose source had CSR postings built gets them
+        *delta-merged* (``merge_postings``) instead of rebuilt: the
+        appended docs' local indices all sort after the existing ones
+        within every word row, so the merged postings are bit-for-bit
+        what a from-scratch ``build_postings`` of the grown shard
+        produces (pinned by tests) at the cost of indexing only the
+        delta."""
+        if not len(docs_tokens):
+            return self, np.zeros(0, np.int64), []
+        base = self.n_docs
+        docs = [Document(base + i, np.asarray(t, np.int32))
+                for i, t in enumerate(docs_tokens)]
+        budget = None if shard_tokens is None else int(shard_tokens)
+        shards = list(self.shards)
+        affected: List[int] = []
+        queue = list(docs)
+        if shards and (budget is None or shards[-1].n_tokens < budget):
+            open_shard = shards[-1]
+            take: List[Document] = []
+            cur = open_shard.n_tokens
+            while queue and (budget is None or cur < budget):
+                d = queue.pop(0)
+                take.append(d)
+                cur += len(d)
+            if take:
+                shards[-1] = _append_to_shard(open_shard, take)
+                affected.append(open_shard.shard_id)
+        while queue:
+            group: List[Document] = []
+            cur = 0
+            while queue and (budget is None or cur < budget):
+                d = queue.pop(0)
+                group.append(d)
+                cur += len(d)
+            sid = len(shards)
+            shards.append(DocShard.from_documents(sid, group))
+            affected.append(sid)
+        new_ids = np.arange(base, base + len(docs), dtype=np.int64)
+        return ShardedCorpus(shards, self.vocab_size), new_ids, affected
 
     # ------------------------------------------------------------------
     # inspection
@@ -296,6 +363,29 @@ def plan_blocked_layout(counts: Sequence[int], block: int
     return row_starts, blocks, int(blocks.sum() * block)
 
 
+def docs_matching_all(shard: DocShard, words: Sequence[int]) -> np.ndarray:
+    """Global doc_ids in ``shard`` containing *all* of ``words``
+    (postings-driven; see ``docs_matching_all_scan`` for the flat-scan
+    parity reference)."""
+    post = shard_postings(shard)
+    ok = np.ones(shard.n_docs, bool)
+    for w in words:
+        m = np.zeros(shard.n_docs, bool)
+        m[post.lookup(w)[0]] = True
+        ok &= m
+    return shard.doc_ids[ok]
+
+
+def docs_matching_all_scan(shard: DocShard, words: Sequence[int]) -> np.ndarray:
+    """Flat-scan reference for ``docs_matching_all`` — O(shard tokens)
+    per word."""
+    ok = np.ones(shard.n_docs, bool)
+    for w in words:
+        hit = (shard.tokens == np.int32(w)).astype(np.int64)
+        ok &= segment_sum_by_offsets(hit, shard.offsets) > 0
+    return shard.doc_ids[ok]
+
+
 # ----------------------------------------------------------------------
 # per-shard CSR postings (lazily built, cached on the shard)
 # ----------------------------------------------------------------------
@@ -360,3 +450,67 @@ def shard_postings(shard: DocShard) -> ShardPostings:
         post = build_postings(shard)
         shard._postings = post
     return post
+
+
+def merge_postings(old: ShardPostings, old_n_docs: int,
+                   delta: ShardPostings) -> ShardPostings:
+    """CSR segment append: merge a shard's existing postings with the
+    postings of its appended-docs delta (local doc indices 0..k-1 in
+    ``delta``, shifted up by ``old_n_docs`` here).
+
+    Bit-for-bit equal to ``build_postings`` on the grown shard: within
+    every word row ``build_postings`` orders entries by ascending local
+    doc index (np.unique on word-major keys), and every appended doc's
+    index is >= ``old_n_docs`` > every existing one — so the rebuilt
+    row is exactly (old entries, then shifted delta entries).  The
+    existing arrays are never copied element-by-element through Python:
+    both sides scatter into the merged layout with vectorized position
+    arithmetic."""
+    vocab = max(old.indptr.shape[0], delta.indptr.shape[0]) - 1
+
+    def row_counts(p: ShardPostings) -> np.ndarray:
+        c = np.zeros(vocab, np.int64)
+        c[: p.indptr.shape[0] - 1] = np.diff(p.indptr)
+        return c
+
+    c_old, c_delta = row_counts(old), row_counts(delta)
+    indptr = np.zeros(vocab + 1, np.int64)
+    np.cumsum(c_old + c_delta, out=indptr[1:])
+    doc_idx = np.empty(int(indptr[-1]), np.int32)
+    tf = np.empty(int(indptr[-1]), np.int32)
+    if old.doc_idx.shape[0]:
+        w = np.repeat(np.arange(vocab, dtype=np.int64), c_old)
+        pos = indptr[w] + (np.arange(old.doc_idx.shape[0]) - old.indptr[w])
+        doc_idx[pos] = old.doc_idx
+        tf[pos] = old.tf
+    if delta.doc_idx.shape[0]:
+        w = np.repeat(np.arange(vocab, dtype=np.int64), c_delta)
+        pos = (indptr[w] + c_old[w]
+               + (np.arange(delta.doc_idx.shape[0]) - delta.indptr[w]))
+        doc_idx[pos] = (delta.doc_idx.astype(np.int64)
+                        + old_n_docs).astype(np.int32)
+        tf[pos] = delta.tf
+    return ShardPostings(indptr, doc_idx, tf)
+
+
+def _append_to_shard(shard: DocShard, docs: Sequence[Document]) -> DocShard:
+    """A NEW shard object = ``shard`` + ``docs`` appended (the source
+    shard is never mutated — old-generation readers keep scanning it).
+    If the source had postings built, the grown shard gets them
+    delta-merged rather than rebuilt."""
+    tokens = np.concatenate(
+        [shard.tokens] + [d.tokens for d in docs]).astype(np.int32)
+    lens = np.asarray([len(d) for d in docs], np.int64)
+    offsets = np.concatenate(
+        [shard.offsets, shard.offsets[-1] + np.cumsum(lens)])
+    doc_ids = np.concatenate(
+        [shard.doc_ids, np.asarray([d.doc_id for d in docs], np.int64)])
+    grown = DocShard(shard.shard_id, tokens, offsets, doc_ids)
+    old_post = getattr(shard, "_postings", None)
+    if old_post is not None:
+        delta = DocShard.from_documents(
+            shard.shard_id,
+            [Document(i, d.tokens) for i, d in enumerate(docs)])
+        grown._postings = merge_postings(old_post, shard.n_docs,
+                                         build_postings(delta))
+    return grown

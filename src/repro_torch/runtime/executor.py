@@ -59,9 +59,9 @@ one ``kernels/megascan`` ``MegascanSpec``, the whole shard group runs as
 ONE kernel launch (``_run_group_scan``) instead of one task per shard,
 with the per-(query, shard) results in the same layout and bit for bit
 the per-shard route's.  This is the serving runtime of the JAX
-package's ``runtime/executor.py``; its ``HostGroupExecutor`` (placement
-across hosts) is not ported yet, and ``run_shared_scan`` stays generic
-over the mapper so it can plug in.
+package's ``runtime/executor.py``.  ``runtime/placement.HostGroupExecutor``
+stacks on top (one ``ShardTaskExecutor`` per simulated host), and
+``run_shared_scan`` is generic over the mapper so both share it.
 
 Completions are tagged with a *job epoch*: a job abandoned at its
 deadline leaves speculative/stalled futures running on the warm pool,
