@@ -185,12 +185,39 @@ Phases, each of which raises (exit code not 0) on any failure:
                 not gated.  Gate: ``vector_shard_similarities_batch`` of
                 the 40 user vectors against its plain version, row 1
                 within rtol 1e-4, row 5 exactly.
+ 18. LM serving — the LM model zoo's serving path, which has no kernel
+                of its own (the record's counts are zeroed before it and
+                must read 0 after).  (a) smollm-360m and mamba2-780m at
+                full width through ``launch/serve.serve``: parameters
+                drawn on the card from a seeded ``torch.Generator``, the
+                default policy (fp32 parameters, bf16 compute and KV
+                cache), batch 4, prompt 64 (mamba2: 320, across a
+                256-token SSD chunk), 32 greedy tokens after one short
+                warm-up call; prints the parameter count and bytes, the
+                prefill ms, decode ms a token (median, p90), tokens/s,
+                ``torch.cuda.max_memory_allocated`` (and its rise over
+                what was live before the call) and, from
+                ``torch.profiler`` over 3 decode steps, device ops and
+                device-busy ms a step and the idle share.  (b) The same
+                parameters under the fp32 policy: prefill + one
+                ``decode_step`` against the teacher-forced ``forward``
+                within 5e-3 of max |logit|, and the card's ``forward``
+                against the CPU's at b=1, s=16 within ``LM_CPU_TOL``
+                (1e-3; mamba2 5e-3, fixed from the readings in PERF.md:
+                at full width it amplifies float32 rounding past 1e-3);
+                every logit finite; the same two checks read again with
+                the card at the default (bf16) policy, which must fail
+                the card-vs-CPU bound.  (d) All ten architectures at
+                smoke width, fp32 policy: forward and prefill + decode
+                on the card against the same parameters on the CPU,
+                within 1e-4.
 
 Each of the main paths (serving, megascan, top-k, their sym
 counterparts, training, k-means, the offline build, ingest, the stack
 and recommendation) is driven with the launch counters set to 0 just
 before it and read just after; each of its kernels must have launched,
 and launches made only to hold one route against another are left out.
+The LM path (phase 18) has no kernel: its counts must read 0.
 Row 5 runs on four paths (the sym batch, the shard-granular planning,
 the sym top-k, recommendation): its record's ``launches`` is the sym
 batch's count and ``launches_by_path`` has each path's own; so do rows
@@ -263,6 +290,18 @@ REVIEW_USERS = 8192     # phase 17's review corpus (cut, see PERF.md)
 REVIEW_ITEMS = 2048
 REVIEW_TEST_USERS = 40
 REVIEW_RATES = (0.10, 0.25, 0.50)
+# phase 18: the LM zoo's serving path.  (arch, prompt length) at full
+# width: mamba2's prompt crosses its 256-token SSD chunk
+LM_FULL = (("smollm-360m", 64), ("mamba2-780m", 320))
+LM_BATCH = 4
+LM_GEN = 32
+LM_CPU_TOKENS = 16      # the b=1 forward held against the CPU
+LM_DECODE_TOL = 5e-3    # prefill + decode against the teacher-forced forward
+# the card's fp32 forward against the CPU's, fixed from the readings in
+# PERF.md: mamba2 at full width moves 2.2e-3 on the CPU alone under a
+# one-ulp change of its parameters
+LM_CPU_TOL = {"smollm-360m": 1e-3, "mamba2-780m": 5e-3}
+LM_SMOKE_TOL = 1e-4     # (d): every smoke arch, card against CPU
 
 
 def log(msg: str) -> None:
@@ -2666,6 +2705,206 @@ def recommend_phase(dev: torch.device, args, kernels: list) -> None:
     add_path(kernels, "recommend", launches)
 
 
+# ----------------------------------------------------------------------
+# phase 18: the LM model zoo's serving path (no kernel of its own)
+# ----------------------------------------------------------------------
+def lm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, on the CPU in float64."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"shapes differ: {tuple(g.shape)} {tuple(w.shape)}")
+    return float((g - w).abs().max() / (w.abs().max() + 1e-9))
+
+
+def decode_profile(params, cfg, prompt: int, dev: torch.device,
+                   steps: int = 3) -> "tuple[float, float] | None":
+    """Kernels a decode step and device-busy ms a step, from
+    ``torch.profiler`` over ``steps`` greedy steps after a prefill of
+    ``prompt`` tokens (batch LM_BATCH); None when the profiler shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt), generator=g,
+                         device=dev)
+    state = M.init_decode_state(cfg, LM_BATCH, prompt + steps + 8, device=dev)
+    logits, state = M.prefill(params, toks, cfg, state)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            logits, state = M.decode_step(params, tok, cfg, state)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        torch.cuda.synchronize(dev)
+    on_dev = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_us = sum(e.device_time_total for e in on_dev)
+    if not on_dev or busy_us <= 0:
+        return None
+    return len(on_dev) / steps, busy_us / 1e3 / steps
+
+
+def require_finite(x: torch.Tensor, what: str) -> None:
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{what}: logits not all finite")
+
+
+def lm_full_width(dev: torch.device, arch: str, prompt: int, seed: int) -> None:
+    """Parts (a)-(c) for one architecture at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.config import DTypePolicy
+    from repro_torch.utils.trees import tree_bytes, tree_map, tree_param_count
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = time.perf_counter()
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize(dev)
+    log(f"   {cfg.name}: {tree_param_count(params)} parameters, "
+        f"{tree_bytes(params)} bytes ({cfg.dtypes.params}), drawn on the "
+        f"card in {time.perf_counter() - t:.2f} s")
+    # (a) serving at the default policy: a short warm-up call, then the
+    # measured one
+    warm = serve(cfg, LM_BATCH, prompt, 2, device=dev, generator=gen,
+                 params=params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev)
+    res = serve(cfg, LM_BATCH, prompt, LM_GEN, device=dev, generator=gen,
+                params=params)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if res.tokens.shape != (LM_BATCH, LM_GEN) or int(res.tokens.min()) < 0 \
+            or int(res.tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: generated tokens out of shape or range")
+    step_ms = np.array(res.step_s) * 1e3
+    log(f"   (a) serve batch {LM_BATCH}, prompt {prompt}, {LM_GEN} greedy "
+        f"tokens, compute {cfg.dtypes.compute}: prefill "
+        f"{res.prefill_s * 1e3:.3f} ms (first call {warm.prefill_s * 1e3:.3f}); "
+        f"decode {float(np.median(step_ms)):.3f} ms a token (median of "
+        f"{len(step_ms)}), p90 {float(np.percentile(step_ms, 90)):.3f}, min "
+        f"{float(step_ms.min()):.3f}; {res.tokens_per_s:.1f} tokens/s; peak "
+        f"{peak} bytes allocated, {peak - live} above the {live} live "
+        f"before the call (the parameters and earlier phases' tensors)")
+    log(f"       first sequence: {res.tokens[0, :12].tolist()}")
+    prof = decode_profile(params, cfg, prompt, dev)
+    if prof is None:
+        log("       decode profile: the profiler showed no device time "
+            "(kernels a step and idle share not measured)")
+    else:
+        busy = prof[1] / float(np.median(step_ms))
+        log(f"       decode profile (torch.profiler, 3 steps): {prof[0]:.0f} "
+            f"device ops a step, {prof[1]:.3f} ms device-busy a step; idle "
+            f"share {1 - busy:.3f} of the median step wall")
+
+    # (b) the fp32 policy, the same parameters; then the same two checks
+    # read with the card at the default policy (a lower-precision run)
+    cfg32 = dataclasses.replace(cfg, dtypes=DTypePolicy(
+        "float32", "float32", "float32"))
+    g2 = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt + 1),
+                         generator=g2, device=dev)
+
+    def decode_gap(c):
+        """(prefill, decode) logits against the teacher-forced forward."""
+        full = M.forward(params, toks, c)
+        state = M.init_decode_state(c, LM_BATCH, prompt + 8, device=dev)
+        lp, state = M.prefill(params, toks[:, :prompt], c, state)
+        ld, state = M.decode_step(params, toks[:, prompt:], c, state)
+        for x, what in ((full, "forward"), (lp, "prefill"), (ld, "decode")):
+            require_finite(x, f"{arch} {c.dtypes.compute} {what}")
+        return lm_err(lp, full[:, prompt - 1]), lm_err(ld, full[:, prompt])
+
+    e_pre, e_dec = decode_gap(cfg32)
+    if max(e_pre, e_dec) >= LM_DECODE_TOL:
+        raise AssertionError(f"{arch}: prefill/decode off the teacher-forced "
+                             f"forward: {e_pre:.3g} / {e_dec:.3g} >= "
+                             f"{LM_DECODE_TOL}")
+    low_pre, low_dec = decode_gap(cfg)
+    host = tree_map(lambda a: a.cpu(), params)
+    t16 = toks[:1, :LM_CPU_TOKENS]
+    want = M.forward(host, t16.cpu(), cfg32)
+    err = lm_err(M.forward(params, t16, cfg32), want)
+    low = lm_err(M.forward(params, t16, cfg), want)
+    tol = LM_CPU_TOL[arch]
+    if err >= tol:
+        raise AssertionError(f"{arch}: card forward off the CPU's: {err:.3g} "
+                             f">= {tol}")
+    if low < tol:
+        raise AssertionError(f"{arch}: the card's {cfg.dtypes.compute} "
+                             f"forward passes the fp32 bound ({low:.3g} < "
+                             f"{tol}): the check tells nothing")
+    log(f"   (b) fp32 policy: prefill + decode_step vs teacher-forced "
+        f"forward {e_pre:.3g} / {e_dec:.3g} (bound {LM_DECODE_TOL}); card vs "
+        f"CPU forward at b=1, s={LM_CPU_TOKENS} {err:.3g} (bound {tol}); all "
+        f"finite.  The card at {cfg.dtypes.compute} through the same checks: "
+        f"{low_pre:.3g} / {low_dec:.3g}, and {low:.3g} against the CPU's fp32")
+    del host, params
+    torch.cuda.empty_cache()
+
+
+def lm_smoke_archs(dev: torch.device, seed: int) -> None:
+    """Part (d): every architecture at smoke width, fp32 policy: forward
+    and prefill + decode_step on the card against the same parameters on
+    the CPU."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import model as M
+    from repro_torch.models.config import DTypePolicy
+    from repro_torch.utils.trees import tree_map
+
+    fp32 = DTypePolicy("float32", "float32", "float32")
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtypes=fp32)
+        host = M.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        params = tree_map(lambda a: a.to(dev), host)
+        g = torch.Generator().manual_seed(seed + 2)
+        toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+        enc = None
+        if cfg.is_encdec or cfg.family == "vlm":
+            t = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+            enc = torch.randn((2, t, cfg.d_model), generator=g)
+
+        def run(p, device):
+            tk = toks.to(device)
+            e = None if enc is None else enc.to(device)
+            full = M.forward(p, tk, cfg, enc_inputs=e)
+            ctx = M.encode(p, e, cfg) if cfg.is_encdec else e
+            st = M.init_decode_state(cfg, 2, 32, enc=ctx, device=device)
+            _, st = M.prefill(p, tk[:, :11], cfg, st)
+            dec, st = M.decode_step(p, tk[:, 11:], cfg, st)
+            if st.length != 12:
+                raise AssertionError(f"{arch}: state length {st.length}")
+            return full, dec
+
+        card, cpu = run(params, dev), run(host, torch.device("cpu"))
+        errs = []
+        for c, h, what in zip(card, cpu, ("forward", "decode")):
+            require_finite(c, f"{arch} {what}")
+            errs.append(lm_err(c, h))
+            if errs[-1] >= LM_SMOKE_TOL:
+                raise AssertionError(f"{arch} smoke {what}: card vs CPU "
+                                     f"{errs[-1]:.3g} >= {LM_SMOKE_TOL}")
+        log(f"   (d) {arch}: card vs CPU forward {errs[0]:.3g}, prefill + "
+            f"decode {errs[1]:.3g}")
+
+
+def lm_phase(dev: torch.device, args) -> None:
+    """Phase 18: the LM zoo's serving path on the card (see the module
+    docstring).  It launches no kernel of the record: the counts are
+    zeroed before it and must read 0 after."""
+    t_phase = time.perf_counter()
+    names = list(KERNEL_MODULES)
+    zero_counts(names)
+    for arch, prompt in LM_FULL:
+        lm_full_width(dev, arch, prompt, args.seed)
+    lm_smoke_archs(dev, args.seed)
+    launched = {n: c for n, c in read_counts(names).items() if c}
+    if launched:
+        raise AssertionError(f"the LM path launched kernels: {launched}")
+    log(f"   phase 18 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2733,6 +2972,10 @@ def main(argv=None) -> int:
     stack_phase(dev, args, build, kernels)
     log(f"== recommendation: {REVIEW_USERS} users x {REVIEW_ITEMS} items")
     recommend_phase(dev, args, kernels)
+    log(f"== LM serving: {', '.join(a for a, _ in LM_FULL)} at full width "
+        f"through launch/serve.serve, then every architecture at smoke "
+        f"width against the CPU")
+    lm_phase(dev, args)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

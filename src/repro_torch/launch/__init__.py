@@ -1,8 +1,10 @@
 """Launchers.  ``serve_stack`` is the serving facade: ``ServeConfig``
 names every serving knob once and ``build_serving_stack`` wires executor
 -> cache -> planner -> engine -> controller -> window -> fleet ->
-ingestor in one call.  The LM launchers of the JAX package's
-``launch/`` are not ported yet."""
+ingestor in one call.  ``serve`` is the LM zoo's serving driver
+(batched prefill + cached decode) and ``steps`` its step functions; the
+JAX package's training, mesh, spec and dry-run launchers are not ported
+yet."""
 from repro_torch.launch.serve_stack import (  # noqa: F401
     Ingestor,
     ServeConfig,

@@ -1,0 +1,292 @@
+"""GQA attention: training (full sequence), prefill, and cached decode.
+
+  * GQA is computed by reshaping query heads into [kv_heads, group] so
+    the einsum contracts against un-repeated K/V (no repeat_kv).
+  * ``attn_impl="chunked"`` is a flash-style lazy softmax over KV chunks
+    (running max/denominator), a Python loop over the chunks; "dense"
+    materializes [B, H, S, T].
+  * Decode: one query token against a [B, S_max, kv, hd] ring buffer
+    with a position mask.  The cache's ``length`` is a Python int (the
+    host counts the tokens it feeds), so every slot index is known on
+    the host and the ring buffer is written through slices, in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dot_bias
+
+NEG_INF = -1e30
+
+
+def _sqrt_in(hd: int, dtype) -> float:
+    """sqrt(hd) computed in float32 and rounded to ``dtype``, as the
+    reference's ``jnp.sqrt(hd).astype(q.dtype)``."""
+    return float(torch.sqrt(torch.tensor(float(hd))).to(dtype))
+
+
+def _inv_sqrt_in(hd: int, dtype) -> float:
+    """1 / sqrt(hd) in float32, rounded to ``dtype`` (the reference's
+    weakly typed ``1.0 / jnp.sqrt(hd)`` takes the scores' dtype)."""
+    return float((1.0 / torch.sqrt(torch.tensor(float(hd)))).to(dtype))
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: [B, S, KH, G, hd], k: [B, T, KH, hd] -> [B, KH, G, S, T]."""
+    return torch.einsum("bskgd,btkd->bkgst", q, k)
+
+
+def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: [B, KH, G, S, T], v: [B, T, KH, hd] -> [B, S, KH, G, hd]."""
+    return torch.einsum("bkgst,btkd->bskgd", p, v)
+
+
+def _causal_mask(s: int, t: int, offset: int, window: int,
+                 device) -> torch.Tensor:
+    """[S, T] True = visible.  offset positions precede the queries."""
+    qpos = torch.arange(s, device=device)[:, None] + offset
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > (qpos - window)
+    return mask
+
+
+def dense_attention(
+    q: torch.Tensor,              # [B, S, H, hd]
+    k: torch.Tensor,              # [B, T, KH, hd]
+    v: torch.Tensor,              # [B, T, KH, hd]
+    *,
+    causal: bool,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_valid_len: Optional[torch.Tensor] = None,   # [B] for decode masking
+) -> torch.Tensor:
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, s, kh, g, hd)
+    scores = _gqa_scores(qg, k) / _sqrt_in(hd, q.dtype)
+    mask = None
+    if causal:
+        mask = _causal_mask(s, t, q_offset, window, q.device)[None, None, None]
+    if kv_valid_len is not None:
+        valid = (torch.arange(t, device=q.device)[None, :]
+                 < kv_valid_len[:, None])                    # [B, T]
+        valid = valid[:, None, None, None, :]
+        mask = valid if mask is None else (mask & valid)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = _gqa_out(p, v)
+    return out.reshape(b, s, h, hd)
+
+
+def chunked_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int = 0,
+    q_offset: int = 0,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Flash-style lazy softmax over KV chunks: O(S * chunk) live scores."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, s, kh, g, hd)
+    n_chunks = (t + chunk - 1) // chunk
+    pad = n_chunks * chunk - t
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = _inv_sqrt_in(hd, q.dtype)
+    dev = q.device
+    qpos = torch.arange(s, device=dev)[:, None] + q_offset
+
+    m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kh, g, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kh, g, s, hd), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        kci = k[:, ci * chunk:(ci + 1) * chunk]
+        vci = v[:, ci * chunk:(ci + 1) * chunk]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, kci) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
+        mask = kpos < t                        # drop the zero-padding
+        if causal:
+            mask = mask & (kpos <= qpos)
+            if window > 0:
+                mask = mask & (kpos > qpos - window)
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p, vci.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-20)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache.
+
+    ``pos[s]`` is the absolute token position stored in slot ``s`` (-1 =
+    empty).  Full-attention models allocate S_max >= total length, so the
+    ring never wraps; sliding-window models allocate S_max = window and
+    the ring gives an O(window) decode state."""
+    k: torch.Tensor          # [B, S_max, KH, hd]
+    v: torch.Tensor          # [B, S_max, KH, hd]
+    pos: torch.Tensor        # [S_max] int32 absolute positions, -1 empty
+    length: int              # tokens seen so far
+
+
+def init_kv_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
+                  dtype, device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, max_seq, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        v=torch.zeros((batch, max_seq, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        pos=torch.full((max_seq,), -1, dtype=torch.int32, device=device),
+        length=0,
+    )
+
+
+def _ring_runs(length: int, s_new: int, s_max: int):
+    """The slots of positions length .. length+s_new-1 (s_new < s_max)
+    as at most two contiguous runs: (first slot, end slot, offset of
+    the run's first token among the new ones)."""
+    first = length % s_max
+    head = min(s_new, s_max - first)
+    runs = [(first, first + head, 0)]
+    if head < s_new:
+        runs.append((0, s_new - head, head))
+    return runs
+
+
+def cache_pos_update(pos: torch.Tensor, length: int,
+                     s_new: int) -> torch.Tensor:
+    """Position-buffer half of cache_update (shared across layers); a
+    new tensor, ``pos`` is left as it was."""
+    s_max = pos.shape[0]
+    if s_new >= s_max:
+        start = length + s_new - s_max
+        tail_pos = torch.arange(start, start + s_max, dtype=torch.int32,
+                                device=pos.device)
+        return torch.roll(tail_pos, start % s_max)
+    out = pos.clone()
+    for a, e, off in _ring_runs(length, s_new, s_max):
+        out[a:e] = torch.arange(length + off, length + off + (e - a),
+                                dtype=torch.int32, device=pos.device)
+    return out
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> KVCache:
+    """Append S_new tokens starting at absolute position cache.length,
+    writing ``cache.k`` / ``cache.v`` in place.  Slots wrap modulo S_max
+    (ring buffer); if S_new >= S_max only the last S_max tokens are
+    kept, laid out so that slot == pos % S_max."""
+    s_max = cache.k.shape[1]
+    s_new = k_new.shape[1]
+    pos = cache_pos_update(cache.pos, cache.length, s_new)
+    if s_new >= s_max:
+        shift = (cache.length + s_new - s_max) % s_max
+        cache.k.copy_(torch.roll(k_new[:, -s_max:], shift, dims=1))
+        cache.v.copy_(torch.roll(v_new[:, -s_max:], shift, dims=1))
+    else:
+        for a, e, off in _ring_runs(cache.length, s_new, s_max):
+            cache.k[:, a:e] = k_new[:, off:off + e - a]
+            cache.v[:, a:e] = v_new[:, off:off + e - a]
+    return KVCache(cache.k, cache.v, pos, cache.length + s_new)
+
+
+def attention_apply(
+    p: dict,                       # attn params
+    x: torch.Tensor,               # [B, S, d_model]
+    *,
+    cfg,
+    positions: torch.Tensor,       # [B, S] or [S]
+    cache: Optional[KVCache] = None,
+    causal: bool = True,
+    window: int = 0,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention with optional KV cache (decode/prefill)."""
+    b, s, _ = x.shape
+    if cfg.qkv_bias:
+        q = dot_bias(x, p["wq"], p["bq"])
+        k = dot_bias(x, p["wk"], p["bk"])
+        v = dot_bias(x, p["wv"], p["bv"])
+    else:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if use_rope:
+        if positions.ndim == 1:
+            positions = positions[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        new_cache = cache_update(cache, k, v)
+        if s > 1:
+            # prefill: queries attend over the fresh K/V directly (the
+            # ring buffer may hold only the window tail, which would be
+            # wrong for early queries); the cache starts empty here.
+            if cfg.attn_impl == "chunked":
+                out = chunked_attention(q, k, v, causal=causal, window=window)
+            else:
+                out = dense_attention(q, k, v, causal=causal, window=window)
+        else:
+            out = _decode_attention(q, new_cache, window=window)
+    elif cfg.attn_impl == "chunked":
+        out = chunked_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = dense_attention(q, k, v, causal=causal, window=window)
+
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], new_cache
+
+
+def _decode_attention(q: torch.Tensor, cache: KVCache, *,
+                      window: int) -> torch.Tensor:
+    """One-token attention against the ring buffer: slot validity and
+    causality come from the stored absolute positions."""
+    b, s, h, hd = q.shape
+    kh = cache.k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, s, kh, g, hd)
+    scores = _gqa_scores(qg, cache.k.to(q.dtype)) / _sqrt_in(hd, q.dtype)
+    qpos = cache.length - 1                       # position of the new token
+    kpos = cache.pos[None, :]                     # [1, S_max]
+    mask = (kpos >= 0) & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = _gqa_out(p, cache.v.to(q.dtype))
+    return out.reshape(b, s, h, hd)
+
+
+def cross_attention_apply(
+    p: dict,
+    x: torch.Tensor,               # [B, S, d_model] decoder side
+    enc: torch.Tensor,             # [B, T, d_model] encoder / vision side
+    *,
+    cfg,
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (enc @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    out = dense_attention(q, k, v, causal=False)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"]

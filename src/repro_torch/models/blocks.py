@@ -1,0 +1,212 @@
+"""Per-family transformer blocks: ParamDefs + apply functions.
+
+Every block comes in one apply function usable for the full-sequence
+forward (no cache) and serving (with KV/SSM state).  Blocks take the
+*per-layer* param dict; model.py stacks the definitions along a leading
+"layers" axis (the reference's tree) and runs the layers in a loop.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import ParamDef, gelu_mlp, rms_norm, swiglu
+
+
+# ----------------------------------------------------------------------
+# ParamDefs
+# ----------------------------------------------------------------------
+def attn_defs(cfg) -> dict:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    out = {
+        "wq": ParamDef((d, q), ("fsdp", "q_dim")),
+        "wk": ParamDef((d, kv), ("fsdp", "kv_dim")),
+        "wv": ParamDef((d, kv), ("fsdp", "kv_dim")),
+        "wo": ParamDef((q, d), ("q_dim", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        out.update({
+            "bq": ParamDef((q,), ("q_dim",), init="zeros"),
+            "bk": ParamDef((kv,), ("kv_dim",), init="zeros"),
+            "bv": ParamDef((kv,), ("kv_dim",), init="zeros"),
+        })
+    return out
+
+
+def mlp_defs(cfg, gelu: bool = False) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if gelu:
+        return {
+            "w_in": ParamDef((d, ff), ("fsdp", "d_ff")),
+            "b_in": ParamDef((ff,), ("d_ff",), init="zeros"),
+            "w_out": ParamDef((ff, d), ("d_ff", "fsdp")),
+            "b_out": ParamDef((d,), ("d_model",), init="zeros"),
+        }
+    return {
+        "w_gate": ParamDef((d, ff), ("fsdp", "d_ff")),
+        "w_up": ParamDef((d, ff), ("fsdp", "d_ff")),
+        "w_down": ParamDef((ff, d), ("d_ff", "fsdp")),
+    }
+
+
+def moe_defs(cfg) -> dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamDef((d, e), ("d_model", None)),
+        "w_gate": ParamDef((e, d, ff), ("experts", "fsdp", None)),
+        "w_up": ParamDef((e, d, ff), ("experts", "fsdp", None)),
+        "w_down": ParamDef((e, ff, d), ("experts", None, "fsdp")),
+    }
+
+
+def ssm_defs(cfg) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    proj_out = 2 * di + 2 * n + h
+    return {
+        "in_proj": ParamDef((d, proj_out), ("fsdp", "d_inner")),
+        "conv_w": ParamDef((cfg.conv_dim, di), (None, "d_inner"), scale=0.5),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "a_log": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "out_proj": ParamDef((di, d), ("d_inner", "fsdp")),
+    }
+
+
+def cross_defs(cfg) -> dict:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {
+        "wq": ParamDef((d, q), ("fsdp", "q_dim")),
+        "wk": ParamDef((d, kv), ("fsdp", "kv_dim")),
+        "wv": ParamDef((d, kv), ("fsdp", "kv_dim")),
+        "wo": ParamDef((q, d), ("q_dim", "fsdp")),
+        "gate": ParamDef((), (), init="zeros"),
+    }
+
+
+def block_defs(cfg, kind: str) -> dict:
+    """kind: dense | moe | ssm | hybrid | cross | encoder | dec_cross."""
+    def norm():
+        return ParamDef((cfg.d_model,), ("d_model",), init="ones")
+    if kind == "ssm":
+        return {"norm": norm(), "ssm": ssm_defs(cfg)}
+    if kind == "cross":
+        return {"norm1": norm(), "cross": cross_defs(cfg),
+                "norm2": norm(), "mlp": mlp_defs(cfg)}
+    if kind == "encoder":
+        return {"norm1": norm(), "attn": attn_defs(cfg),
+                "norm2": norm(), "mlp": mlp_defs(cfg, gelu=True)}
+    if kind == "dec_cross":   # whisper decoder layer: self + cross + mlp
+        return {"norm1": norm(), "attn": attn_defs(cfg),
+                "norm2": norm(), "cross": cross_defs(cfg),
+                "norm3": norm(), "mlp": mlp_defs(cfg, gelu=True)}
+    out = {"norm1": norm(), "attn": attn_defs(cfg), "norm2": norm()}
+    if kind == "moe":
+        out["moe"] = moe_defs(cfg)
+    elif kind == "hybrid":
+        out["ssm"] = ssm_defs(cfg)
+        out["mlp"] = mlp_defs(cfg)
+        out["mix"] = ParamDef((2,), (None,), init="ones")
+    elif kind == "dense":
+        out["mlp"] = mlp_defs(cfg)
+    else:
+        raise ValueError(kind)
+    return out
+
+
+# ----------------------------------------------------------------------
+# apply
+# ----------------------------------------------------------------------
+def _gelu_mlp(h: torch.Tensor, p: dict) -> torch.Tensor:
+    return gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor):
+    """The residual sum x + y, rounded to x's dtype for the stream, and
+    unrounded in float32 for the norm that reads it.  The reference's
+    XLA evaluates ``rms_norm(x + y)``'s ``convert(x + y, f32)`` as a
+    float32 add, so its norms see the unrounded sum (under a bf16
+    compute dtype; under float32 the two are one tensor)."""
+    s32 = x.float() + y.float()
+    return s32.to(x.dtype), s32
+
+
+def _norm32(s32: torch.Tensor, w: torch.Tensor, cfg, dtype) -> torch.Tensor:
+    return rms_norm(s32, w, cfg.norm_eps).to(dtype)
+
+
+def apply_block(
+    p: dict,
+    x: torch.Tensor,
+    cfg,
+    kind: str,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[attn_mod.KVCache] = None,
+    ssm_state: Optional[ssm_mod.SSMState] = None,
+    enc: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    want_aux: bool = False,
+):
+    """Returns (x_out, new_cache, new_ssm_state, aux_loss); aux_loss is
+    the MoE router's load-balancing loss where ``want_aux`` (a training
+    loss reads it; serving does not), else the float 0.0 (no launch)."""
+    new_cache, new_state = None, None
+    zero = 0.0
+    dtype = x.dtype
+    if kind == "ssm":
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        y, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state)
+        return x + y, None, new_state, zero
+
+    if kind == "cross":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        y = attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg)
+        x, s32 = _residual(x, torch.tanh(p["cross"]["gate"]) * y)
+        h = _norm32(s32, p["norm2"], cfg, dtype)
+        return x + swiglu(h, **p["mlp"]), None, None, zero
+
+    if kind == "encoder":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        y, _ = attn_mod.attention_apply(
+            p["attn"], h, cfg=cfg, positions=positions, causal=False,
+            use_rope=False)
+        x, s32 = _residual(x, y)
+        h = _norm32(s32, p["norm2"], cfg, dtype)
+        return x + _gelu_mlp(h, p["mlp"]), None, None, zero
+
+    if kind == "dec_cross":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        y, new_cache = attn_mod.attention_apply(
+            p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+            causal=causal, use_rope=False)
+        x, s32 = _residual(x, y)
+        h = _norm32(s32, p["norm2"], cfg, dtype)
+        x, s32 = _residual(
+            x, attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg))
+        h = _norm32(s32, p["norm3"], cfg, dtype)
+        return x + _gelu_mlp(h, p["mlp"]), new_cache, None, zero
+
+    # dense / moe / hybrid share the attention sublayer
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    window = cfg.sliding_window if kind == "hybrid" else 0
+    y, new_cache = attn_mod.attention_apply(
+        p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+        causal=causal, window=window)
+    if kind == "hybrid":
+        ys, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state)
+        mix = torch.softmax(p["mix"].float(), dim=-1)
+        y = (mix[0] * y.float() + mix[1] * ys.float()).to(dtype)
+    x, s32 = _residual(x, y)
+    h = _norm32(s32, p["norm2"], cfg, dtype)
+    aux = zero
+    if kind == "moe":
+        x = x + moe_mod.moe_apply(p["moe"], h, cfg)
+        if want_aux:
+            aux = moe_mod.moe_aux_loss(p["moe"], h, cfg)
+    else:
+        x = x + swiglu(h, **p["mlp"])
+    return x, new_cache, new_state, aux

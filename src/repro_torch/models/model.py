@@ -1,0 +1,411 @@
+"""Top-level model assembly: init, forward, prefill, decode.
+
+The parameter definitions are the reference's tree, layers stacked
+along a leading "layers" axis (``param_defs``); the port's parameters
+are that tree with the stacked axes taken apart into lists of per-layer
+dicts, which the forward runs in a Python loop:
+
+  * ``params["layers"]``: one dict a layer;
+  * ``params["groups"]`` (VLM ``cross_attn_every``, MoE ``moe_every >
+    1``): one dict a group, ``{"plain": [dict, ...], "cross" | "moe":
+    dict}``;
+  * ``params["encoder"]`` (Whisper): one dict an encoder layer.
+
+Weights keep the reference's ``[in, out]`` layout (``x @ w``).  Every
+call casts the parameters to the compute dtype first (``tree_cast``),
+as the reference's ``_cast_tree`` does.  The decode state keeps the
+reference's stacked layout ([L, B, S, KH, hd] caches, [G, per, ...] in
+the grouped models); ``prefill`` and ``decode_step`` write its caches
+in place.  The reference's ``shard_constraint`` calls (no-ops on one
+device) are left out.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.attention import KVCache, cache_pos_update
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    ParamDef,
+    logical_axes_tree,
+    materialize,
+    rms_norm,
+    tree_paths,
+)
+from repro_torch.models.ssm import SSMState
+from repro_torch.utils.trees import tree_cast, tree_leaves, tree_map
+
+
+# ----------------------------------------------------------------------
+# parameter trees
+# ----------------------------------------------------------------------
+def _stack_defs(defs, n: int):
+    if isinstance(defs, ParamDef):
+        return ParamDef((n,) + defs.shape, ("layers",) + defs.logical_axes,
+                        defs.init, defs.scale)
+    return {k: _stack_defs(v, n) for k, v in defs.items()}
+
+
+def _layer_kind(cfg: ModelConfig) -> str:
+    return {"dense": "dense", "moe": "moe", "ssm": "ssm",
+            "hybrid": "hybrid", "audio": "dec_cross", "vlm": "dense"}[cfg.family]
+
+
+def _vlm_groups(cfg: ModelConfig) -> bool:
+    return cfg.family == "vlm" and cfg.cross_attn_every > 0
+
+
+def _moe_groups(cfg: ModelConfig) -> bool:
+    return cfg.family == "moe" and cfg.moe_every > 1
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's parameter tree of ParamDefs (stacked layers)."""
+    d, v = cfg.d_model, cfg.vocab_size
+    out: Dict[str, Any] = {
+        "tok_emb": ParamDef((v, d), ("vocab", "fsdp")),
+        "final_norm": ParamDef((d,), ("d_model",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamDef((d, v), ("fsdp", "vocab"))
+
+    kind = _layer_kind(cfg)
+    if _vlm_groups(cfg):
+        n_groups = cfg.n_layers // cfg.cross_attn_every
+        plain_per = cfg.cross_attn_every - 1
+        out["groups"] = {
+            "plain": _stack_defs(_stack_defs(blocks.block_defs(cfg, "dense"),
+                                             plain_per), n_groups),
+            "cross": _stack_defs(blocks.block_defs(cfg, "cross"), n_groups),
+        }
+    elif _moe_groups(cfg):
+        # interleaved dense/MoE (maverick): groups of (moe_every-1 dense
+        # + 1 moe), dense first
+        n_groups = cfg.n_layers // cfg.moe_every
+        dense_per = cfg.moe_every - 1
+        out["groups"] = {
+            "plain": _stack_defs(_stack_defs(blocks.block_defs(cfg, "dense"),
+                                             dense_per), n_groups),
+            "moe": _stack_defs(blocks.block_defs(cfg, "moe"), n_groups),
+        }
+    else:
+        out["layers"] = _stack_defs(blocks.block_defs(cfg, kind), cfg.n_layers)
+
+    if cfg.is_encdec:
+        out["encoder"] = _stack_defs(blocks.block_defs(cfg, "encoder"),
+                                     cfg.encoder_layers)
+        out["enc_final_norm"] = ParamDef((d,), ("d_model",), init="ones")
+        out["dec_pos_emb"] = ParamDef((cfg.max_seq_len, d), (None, "fsdp"),
+                                      scale=0.02)
+    return out
+
+
+def logical_axes(cfg: ModelConfig):
+    return logical_axes_tree(param_defs(cfg))
+
+
+def _unstack(tree) -> list:
+    """A tree whose leaves share a leading axis -> one tree per index
+    (views, no copy)."""
+    n = tree_leaves(tree)[0].shape[0]
+    return [tree_map(lambda a, i=i: a[i], tree) for i in range(n)]
+
+
+def _unstack_params(tree: dict) -> dict:
+    """The reference's stacked tree -> the port's per-layer lists."""
+    out = dict(tree)
+    for name in ("layers", "encoder"):
+        if name in out:
+            out[name] = _unstack(out[name])
+    if "groups" in out:
+        groups = _unstack(out["groups"])
+        for gp in groups:
+            gp["plain"] = _unstack(gp["plain"])
+        out["groups"] = groups
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: "torch.device | str | None" = None) -> dict:
+    """Parameters drawn from ``generator`` (seed 0 on the device when
+    None) with the reference's initializers, on ``device`` (CUDA unless
+    named), in the port's per-layer layout."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    stacked = materialize(param_defs(cfg), generator,
+                          cfg.dtypes.params_dtype, dev)
+    return _unstack_params(stacked)
+
+
+def _as_tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' numpy bfloat16
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.tensor(a, device=dev)      # a copy: JAX's buffers are read-only
+
+
+def model_from_arrays(cfg: ModelConfig, tree: dict,
+                      device: "torch.device | str | None" = None) -> dict:
+    """The port's parameters on ``device`` (CUDA unless named) from the
+    JAX package's parameter tree as nested dicts of numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``): the stacked
+    ``layers`` / ``groups`` / ``encoder`` axes are taken apart, the
+    ``[in, out]`` weight layout is kept."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _as_tensor(t, dev)
+
+    expect = {"/".join(p) for p, _ in tree_paths(param_defs(cfg))}
+    got = {"/".join(p) for p, _ in tree_paths(tree)}
+    if expect != got:
+        raise ValueError(f"parameter tree does not match {cfg.name}: "
+                         f"missing {sorted(expect - got)}, "
+                         f"extra {sorted(got - expect)}")
+    return _unstack_params(conv(tree))
+
+
+# ----------------------------------------------------------------------
+# forward (no cache)
+# ----------------------------------------------------------------------
+def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings [B, T, d]."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params["encoder"]:
+        x, _, _, _ = blocks.apply_block(lp, x, cfg, "encoder",
+                                        positions=positions, causal=False)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _head(cparams, cfg: ModelConfig) -> torch.Tensor:
+    return cparams["tok_emb"].T if cfg.tie_embeddings else cparams["lm_head"]
+
+
+def _forward_impl(
+    params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    enc_inputs: Optional[torch.Tensor],
+    want_aux: bool = False,
+) -> Tuple[torch.Tensor, "torch.Tensor | float"]:
+    """(logits, the MoE layers' summed load-balancing loss where
+    ``want_aux``, else 0.0)."""
+    compute = cfg.dtypes.compute_dtype
+    cparams = tree_cast(params, compute)
+    b, s = tokens.shape
+    x = cparams["tok_emb"][tokens]
+    positions = torch.arange(s, device=x.device)
+
+    enc = None
+    if cfg.is_encdec:
+        enc = _run_encoder(cparams, enc_inputs.to(compute), cfg)
+        x = x + cparams["dec_pos_emb"][:s][None]
+    elif cfg.family == "vlm":
+        enc = enc_inputs.to(compute)
+
+    kind = _layer_kind(cfg)
+    aux_total = 0.0
+    if _vlm_groups(cfg):
+        for gp in cparams["groups"]:
+            for lp in gp["plain"]:
+                x, _, _, _ = blocks.apply_block(lp, x, cfg, "dense",
+                                                positions=positions)
+            x, _, _, _ = blocks.apply_block(gp["cross"], x, cfg, "cross",
+                                            positions=positions, enc=enc)
+    elif _moe_groups(cfg):
+        for gp in cparams["groups"]:
+            for lp in gp["plain"]:
+                x, _, _, _ = blocks.apply_block(lp, x, cfg, "dense",
+                                                positions=positions)
+            x, _, _, aux = blocks.apply_block(gp["moe"], x, cfg, "moe",
+                                              positions=positions,
+                                              want_aux=want_aux)
+            aux_total = aux_total + aux
+    else:
+        for lp in cparams["layers"]:
+            x, _, _, aux = blocks.apply_block(lp, x, cfg, kind,
+                                              positions=positions, enc=enc,
+                                              want_aux=want_aux)
+            aux_total = aux_total + aux
+
+    x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
+    logits = x @ _head(cparams, cfg)
+    return logits, aux_total
+
+
+def forward(
+    params,
+    tokens: torch.Tensor,              # [B, S] int
+    cfg: ModelConfig,
+    *,
+    enc_inputs: Optional[torch.Tensor] = None,   # audio frames / vision embeds
+) -> torch.Tensor:
+    """Full-sequence causal forward -> logits [B, S, vocab]."""
+    logits, _ = _forward_impl(params, tokens, cfg, enc_inputs)
+    return logits
+
+
+forward_train = forward  # the reference's alias
+
+
+# ----------------------------------------------------------------------
+# serving: prefill + decode
+# ----------------------------------------------------------------------
+class DecodeState(NamedTuple):
+    """The serving state.  ``length`` is a Python int (the host counts
+    the tokens it feeds).  ``prefill`` / ``decode_step`` write the
+    ``kv`` and ``ssm`` tensors in place and return a state with the new
+    ``pos`` and ``length``: the state passed in is consumed."""
+    kv: Any            # stacked (k, v) [L, B, S, KH, hd], or grouped
+    ssm: Optional[Tuple[torch.Tensor, torch.Tensor]]  # stacked state/conv
+    pos: Optional[torch.Tensor]                  # [S_cache] int32 ring positions
+    length: int
+    enc: Optional[torch.Tensor] = None           # encoder/vision context
+
+
+def _cache_seq_len(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window > 0:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      enc: Optional[torch.Tensor] = None,
+                      device: "torch.device | str | None" = None
+                      ) -> DecodeState:
+    """An empty state on ``device`` (CUDA unless named)."""
+    dev = resolve_device(device)
+    dt = cfg.dtypes.kv_cache_dtype
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def empty_pos(n):
+        return torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    kv, ssm, pos = None, None, None
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if _vlm_groups(cfg):
+        n_groups = cfg.n_layers // cfg.cross_attn_every
+        plain_per = cfg.cross_attn_every - 1
+        kv = (zeros(n_groups, plain_per, *shape),
+              zeros(n_groups, plain_per, *shape))
+        pos = empty_pos(max_len)
+    elif _moe_groups(cfg):
+        n_groups = cfg.n_layers // cfg.moe_every
+        dense_per = cfg.moe_every - 1
+        kv = {"plain": (zeros(n_groups, dense_per, *shape),
+                        zeros(n_groups, dense_per, *shape)),
+              "moe": (zeros(n_groups, *shape), zeros(n_groups, *shape))}
+        pos = empty_pos(max_len)
+    elif cfg.family != "ssm":
+        s_len = _cache_seq_len(cfg, max_len)
+        kv = (zeros(cfg.n_layers, batch, s_len, cfg.n_kv_heads, cfg.head_dim),
+              zeros(cfg.n_layers, batch, s_len, cfg.n_kv_heads, cfg.head_dim))
+        pos = empty_pos(s_len)
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = (zeros(cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state, dtype=torch.float32),
+               zeros(cfg.n_layers, batch, cfg.conv_dim - 1, cfg.d_inner))
+    return DecodeState(kv=kv, ssm=ssm, pos=pos, length=0, enc=enc)
+
+
+def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
+                    state: DecodeState):
+    """Shared prefill/decode body: runs S tokens against the caches."""
+    compute = cfg.dtypes.compute_dtype
+    cparams = tree_cast(params, compute)
+    b, s = tokens.shape
+    x = cparams["tok_emb"][tokens]
+    length = state.length
+    positions = torch.arange(length, length + s, device=x.device)
+    enc = state.enc
+    if enc is not None:
+        enc = enc.to(compute)
+    if cfg.is_encdec:
+        # dynamic_slice clamps its start so that the slice fits
+        start = max(0, min(length, cfg.max_seq_len - s))
+        x = x + cparams["dec_pos_emb"][start:start + s][None]
+
+    kind = _layer_kind(cfg)
+    new_pos = (cache_pos_update(state.pos, length, s)
+               if state.pos is not None else None)
+
+    def run_attn(lp, h, block_kind, k_l, v_l, ssm_l=None):
+        """One block against the layer's cache views, written in place."""
+        cache = KVCache(k_l, v_l, state.pos, length)
+        y, _, new_ssm, _ = blocks.apply_block(
+            lp, h, cfg, block_kind, positions=positions, cache=cache,
+            ssm_state=None if ssm_l is None else SSMState(*ssm_l), enc=enc)
+        if new_ssm is not None:
+            ssm_l[0].copy_(new_ssm.state)
+            ssm_l[1].copy_(new_ssm.conv)
+        return y
+
+    if _vlm_groups(cfg):
+        k_all, v_all = state.kv
+        for g, gp in enumerate(cparams["groups"]):
+            for j, lp in enumerate(gp["plain"]):
+                x = run_attn(lp, x, "dense", k_all[g, j], v_all[g, j])
+            x, _, _, _ = blocks.apply_block(gp["cross"], x, cfg, "cross",
+                                            positions=positions, enc=enc)
+    elif _moe_groups(cfg):
+        kp, vp = state.kv["plain"]
+        km, vm = state.kv["moe"]
+        for g, gp in enumerate(cparams["groups"]):
+            for j, lp in enumerate(gp["plain"]):
+                x = run_attn(lp, x, "dense", kp[g, j], vp[g, j])
+            x = run_attn(gp["moe"], x, "moe", km[g], vm[g])
+    elif cfg.family == "ssm":
+        st_all, cv_all = state.ssm
+        for i, lp in enumerate(cparams["layers"]):
+            x, _, new_ssm, _ = blocks.apply_block(
+                lp, x, cfg, "ssm", positions=positions,
+                ssm_state=SSMState(st_all[i], cv_all[i]))
+            st_all[i].copy_(new_ssm.state)
+            cv_all[i].copy_(new_ssm.conv)
+    elif cfg.family == "hybrid":
+        k_all, v_all = state.kv
+        st_all, cv_all = state.ssm
+        for i, lp in enumerate(cparams["layers"]):
+            x = run_attn(lp, x, "hybrid", k_all[i], v_all[i],
+                         (st_all[i], cv_all[i]))
+    else:
+        k_all, v_all = state.kv
+        for i, lp in enumerate(cparams["layers"]):
+            x = run_attn(lp, x, kind, k_all[i], v_all[i])
+    new_state = DecodeState(state.kv, state.ssm, new_pos, length + s,
+                            state.enc)
+
+    x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
+    logits = x[:, -1, :] @ _head(cparams, cfg)
+    return logits, new_state
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
+            state: DecodeState):
+    """Process the prompt; returns (last-token logits, filled state)."""
+    if cfg.is_encdec and state.enc is None:
+        raise ValueError("enc-dec prefill needs encoder output in state.enc")
+    return _forward_cached(params, tokens, cfg, state)
+
+
+def decode_step(params, token: torch.Tensor, cfg: ModelConfig,
+                state: DecodeState):
+    """One decode step. token: [B, 1] -> (logits [B, vocab], new state)."""
+    return _forward_cached(params, token, cfg, state)
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Public encoder entry (whisper): stub frames -> encoder states."""
+    cparams = tree_cast(params, cfg.dtypes.compute_dtype)
+    return _run_encoder(cparams, frames.to(cfg.dtypes.compute_dtype), cfg)

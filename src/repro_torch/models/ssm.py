@@ -1,0 +1,148 @@
+"""Mamba2 SSD (state-space duality) layer: chunked scan + O(1) decode.
+
+The SSD recurrence (Dao & Gu 2024, arXiv:2405.21060) in its chunked
+form: within a chunk the quadratic "attention-like" dual form runs as
+dense einsums; across chunks a small state [heads, head_dim, state]
+carries the recurrence, in a Python loop over the chunks.  The sequence
+is padded to whole chunks (a decode step pads its one token to a chunk,
+as the reference does); the cumulative sums and the state stay fp32.
+
+Simplifications vs the full Mamba2 block (as in the reference): scalar
+per-head A, single B/C group, depthwise conv on x only.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import silu, softplus
+
+
+class SSMState(NamedTuple):
+    state: torch.Tensor       # [B, H, hd, N] inter-chunk SSD state
+    conv: torch.Tensor        # [B, conv_dim-1, d_inner] depthwise conv tail
+
+
+def init_ssm_state(batch: int, cfg, dtype, device) -> SSMState:
+    return SSMState(
+        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.conv_dim - 1, cfg.d_inner), dtype=dtype,
+                         device=device),
+    )
+
+
+def _split_proj(p, x, cfg):
+    """in_proj -> (z gate [.., d_inner], x [.., d_inner], B [.., N],
+    C [.., N], dt [.., H])."""
+    zxbcdt = x @ p["in_proj"]
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
+
+
+def _conv1d(xin: torch.Tensor, w: torch.Tensor,
+            tail: Optional[torch.Tensor]):
+    """Causal depthwise conv over seq.  w: [conv_dim, d_inner].
+    Returns (y, new_tail)."""
+    kdim = w.shape[0]
+    if tail is None:
+        pad = torch.zeros((xin.shape[0], kdim - 1, xin.shape[2]),
+                          dtype=xin.dtype, device=xin.device)
+    else:
+        pad = tail.to(xin.dtype)
+    xp = torch.cat([pad, xin], dim=1)                 # [B, S+k-1, di]
+    y = sum(xp[:, i: i + xin.shape[1], :] * w[i] for i in range(kdim))
+    new_tail = xp[:, xp.shape[1] - (kdim - 1):, :]
+    return silu(y), new_tail
+
+
+def ssd_chunked(
+    xin: torch.Tensor,       # [B, S, H, hd]  (post conv+silu, reshaped)
+    dt: torch.Tensor,        # [B, S, H]      softplus'd step sizes
+    a_log: torch.Tensor,     # [H]            log(-A)
+    b: torch.Tensor,         # [B, S, N]
+    c: torch.Tensor,         # [B, S, N]
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,   # [B, H, hd, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD forward. Returns (y [B,S,H,hd], final_state [B,H,hd,N])."""
+    bsz, s, h, hd = xin.shape
+    n = b.shape[-1]
+    nc = (s + chunk - 1) // chunk
+    pad = nc * chunk - s
+    if pad:
+        xin = F.pad(xin, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    a = -torch.exp(a_log.float())                              # [H], a < 0
+    dt32 = dt.float()
+    da = dt32 * a[None, None, :]                               # [B, S', H]
+    xin_c = xin.reshape(bsz, nc, chunk, h, hd)
+    dt_c = dt32.reshape(bsz, nc, chunk, h)
+    da_c = da.reshape(bsz, nc, chunk, h)
+    b_c = b.reshape(bsz, nc, chunk, n).float()
+    c_c = c.reshape(bsz, nc, chunk, n).float()
+
+    cum = torch.cumsum(da_c, dim=2)                            # [B,nc,L,H]
+    seg_total = cum[:, :, -1, :]                               # [B,nc,H]
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=xin.device))
+
+    state = (init_state if init_state is not None
+             else torch.zeros((bsz, h, hd, n), dtype=torch.float32,
+                              device=xin.device))
+    ys = []
+    for i in range(nc):
+        xin_i, dt_i, cum_i = xin_c[:, i], dt_c[:, i], cum[:, i]
+        tot_i, b_i, c_i = seg_total[:, i], b_c[:, i], c_c[:, i]
+        # intra-chunk dual (attention-like) term
+        # L[s,t] = exp(cum[s] - cum[t]) for s >= t
+        rel = cum_i[:, :, None, :] - cum_i[:, None, :, :]      # [B,L,L,H]
+        # mask BEFORE exp: exp of the (large positive) acausal entries
+        # overflows to inf, and inf * 0 is NaN
+        rel = torch.where(causal[None, :, :, None], rel, -1e30)
+        gamma = torch.exp(rel)
+        cb = torch.einsum("bln,btn->blt", c_i, b_i)            # [B,L,L]
+        w = cb[:, :, :, None] * gamma                          # [B,L,L,H]
+        xdt = xin_i.float() * dt_i[..., None]                  # [B,L,H,hd]
+        y_intra = torch.einsum("blth,bthd->blhd", w, xdt)
+        # inter-chunk: contribution of carried state
+        decay_in = torch.exp(cum_i)                            # [B,L,H]
+        y_inter = torch.einsum("bln,bhdn,blh->blhd", c_i, state, decay_in)
+        # state' = exp(tot) * state + sum_t exp(tot-cum_t) * x_t dt_t b_t^T
+        decay_out = torch.exp(tot_i[:, None, :] - cum_i)       # [B,L,H]
+        ds = torch.einsum("blh,blhd,bln->bhdn", decay_out, xdt, b_i)
+        state = torch.exp(tot_i)[:, :, None, None] * state + ds
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, nc * chunk, h, hd)[:, :s]
+    return y.to(xin.dtype), state
+
+
+def ssm_apply(
+    p: dict,
+    x: torch.Tensor,            # [B, S, d_model]
+    cfg,
+    state: Optional[SSMState] = None,
+) -> Tuple[torch.Tensor, Optional[SSMState]]:
+    """Full Mamba2 mixer.  With ``state`` the call is incremental
+    (prefill appends S tokens; decode S=1) and returns the new state."""
+    bsz, s, _ = x.shape
+    z, xin, b, c, dt = _split_proj(p, x, cfg)
+    xin, new_conv = _conv1d(xin, p["conv_w"],
+                            state.conv if state is not None else None)
+    dt = softplus(dt + p["dt_bias"])
+    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    xin_h = xin.reshape(bsz, s, h, hd)
+    y, new_state = ssd_chunked(
+        xin_h, dt, p["a_log"], b, c, cfg.ssm_chunk,
+        init_state=state.state if state is not None else None)
+    y = y + xin_h * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, s, cfg.d_inner)
+    y = y * silu(z)                            # gated output
+    out = y @ p["out_proj"]
+    if state is not None:
+        return out, SSMState(new_state, new_conv)
+    return out, None

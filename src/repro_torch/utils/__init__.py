@@ -1,1 +1,2 @@
-"""Statistics helpers."""
+"""Statistics helpers (``stats``) and tree math over nested dicts of
+tensors (``trees``)."""

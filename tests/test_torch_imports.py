@@ -58,7 +58,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.kernels.kmeans.kernel",
             "repro_torch.kernels.kmeans.ref",
             "repro_torch.core.pv_dbow", "repro_torch.core.allocation",
-            "repro_torch.configs.emapprox"} <= names
+            "repro_torch.configs.emapprox",
+            "repro_torch.models", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.blocks", "repro_torch.models.model",
+            "repro_torch.launch.steps", "repro_torch.launch.serve",
+            "repro_torch.utils.trees", "repro_torch.configs.smollm_360m",
+            "repro_torch.configs.mamba2_780m",
+            "repro_torch.configs.llama4_maverick_400b_a17b"} <= names
 
 
 def _imported_roots(path: pathlib.Path):
@@ -89,11 +97,26 @@ def test_default_device_is_cuda_and_raises_without_gpu():
               shard_sig=sig, doc_sig=None, bits=32,
               doc_freq=np.zeros(2, np.int64), n_docs=2, avg_doc_len=1.0)
     assert ApproxIndex(**kw, device="cpu").device == torch.device("cpu")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_decode_state, init_params
+    cfg = get_config("smollm_360m", smoke=True)
+    params = init_params(cfg, device="cpu")
+    assert params["tok_emb"].device == torch.device("cpu")
     if torch.cuda.is_available():
         assert ApproxIndex(**kw).device.type == "cuda"
+        assert init_params(cfg)["tok_emb"].device.type == "cuda"
+        assert init_decode_state(cfg, 1, 8).pos.device.type == "cuda"
+        assert serve(cfg, 1, 4, 2).tokens.shape == (1, 2)
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         ApproxIndex(**kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_decode_state(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(cfg, 1, 4, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(ValueError):
