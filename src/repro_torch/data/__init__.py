@@ -1,1 +1,2 @@
-"""Corpus generation and the sharded document store."""
+"""Corpus generation, the sharded document store, the tokenizer and
+the LM batch pipeline."""

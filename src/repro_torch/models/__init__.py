@@ -4,8 +4,9 @@ PyTorch.
 All models share a single ModelConfig surface and the entry points
 ``init_params`` / ``model_from_arrays`` (parameters drawn from a
 ``torch.Generator``, or carried over from the JAX package),
-``forward`` and ``prefill`` / ``decode_step`` (KV/SSM-cache serving).
-The training loss waits for the training slice.
+``forward`` and ``prefill`` / ``decode_step`` (KV/SSM-cache serving),
+and the training loss ``loss_fn`` over the stacked tree
+(``init_stacked_params``, ``train_state_from_arrays``).
 
 Families: dense transformer (GQA/RoPE/QKV-bias), MoE (top-k capacity
 dispatch), SSM (Mamba2 SSD), hybrid (Hymba parallel attn+SSM), enc-dec
@@ -15,7 +16,9 @@ stub patch embeddings, interleaved cross-attention).
 from repro_torch.models.config import ModelConfig, DTypePolicy  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     init_params,
+    init_stacked_params,
     forward_train,
+    loss_fn,
     init_decode_state,
     prefill,
     decode_step,

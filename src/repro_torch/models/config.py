@@ -1,11 +1,12 @@
 """Unified model configuration for the 10 LM architectures.
 
 The same fields, defaults and properties as the JAX package's
-``ModelConfig``; the dtype names map to ``torch`` dtypes.  Three fields
-are read and ignored by the port's eager forward: ``remat`` and
-``scan_layers`` are training and compile knobs of the JAX package (the
-port runs its layers in a Python loop and keeps no activation
-checkpoint), and ``attn_impl`` is honoured.
+``ModelConfig``; the dtype names map to ``torch`` dtypes.  ``remat``
+is the training loss's activation-checkpoint policy
+(``torch.utils.checkpoint`` around each layer body, see
+``models/model.py``); ``scan_layers`` is a compile knob of the JAX
+package, read and ignored (the port runs its layers in a Python loop);
+``attn_impl`` is honoured.
 """
 from __future__ import annotations
 
@@ -87,8 +88,9 @@ class ModelConfig:
     # --- training / serving behavior ---
     max_seq_len: int = 8192
     dtypes: DTypePolicy = dataclasses.field(default_factory=DTypePolicy)
-    # the JAX package's activation-checkpoint policy and layer scan:
-    # read and ignored here (see the module docstring)
+    # activation checkpointing of the training loss: none | full |
+    # selective (save the weight matmuls); scan_layers is read and
+    # ignored (see the module docstring)
     remat: str = "selective"
     scan_layers: bool = True
     # attention implementation: "dense" (materialized scores) or

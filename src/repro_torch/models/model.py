@@ -1,9 +1,13 @@
-"""Top-level model assembly: init, forward, prefill, decode.
+"""Top-level model assembly: init, forward, training loss, prefill,
+decode.
 
 The parameter definitions are the reference's tree, layers stacked
-along a leading "layers" axis (``param_defs``); the port's parameters
-are that tree with the stacked axes taken apart into lists of per-layer
-dicts, which the forward runs in a Python loop:
+along a leading "layers" axis (``param_defs``).  The training state
+keeps that stacked tree (``init_stacked_params``,
+``train_state_from_arrays``; ``loss_fn`` takes it apart inside each
+call).  The serving entry points take the tree with the stacked axes
+taken apart into lists of per-layer dicts, which the forward runs in a
+Python loop:
 
   * ``params["layers"]``: one dict a layer;
   * ``params["groups"]`` (VLM ``cross_attn_every``, MoE ``moe_every >
@@ -21,10 +25,14 @@ device) are left out.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import blocks
@@ -38,7 +46,8 @@ from repro_torch.models.layers import (
     tree_paths,
 )
 from repro_torch.models.ssm import SSMState
-from repro_torch.utils.trees import tree_cast, tree_leaves, tree_map
+from repro_torch.optimizer import OptState, Q8State
+from repro_torch.utils.trees import tree_cast
 
 
 # ----------------------------------------------------------------------
@@ -111,9 +120,15 @@ def logical_axes(cfg: ModelConfig):
 
 def _unstack(tree) -> list:
     """A tree whose leaves share a leading axis -> one tree per index
-    (views, no copy)."""
-    n = tree_leaves(tree)[0].shape[0]
-    return [tree_map(lambda a, i=i: a[i], tree) for i in range(n)]
+    (views, no copy).  ``torch.unbind`` takes each leaf apart in one
+    op, whose backward stacks the per-layer gradients into the stacked
+    leaf's gradient once (a view a layer would add a zero-filled
+    stacked-size gradient per layer)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _unstack_params(tree: dict) -> dict:
@@ -130,17 +145,25 @@ def _unstack_params(tree: dict) -> dict:
     return out
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: "torch.device | str | None" = None) -> dict:
+def init_stacked_params(cfg: ModelConfig,
+                        generator: Optional[torch.Generator] = None,
+                        device: "torch.device | str | None" = None) -> dict:
     """Parameters drawn from ``generator`` (seed 0 on the device when
     None) with the reference's initializers, on ``device`` (CUDA unless
-    named), in the port's per-layer layout."""
+    named), in the reference's stacked layout (``param_defs``): the
+    training state's layout (``loss_fn``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    stacked = materialize(param_defs(cfg), generator,
-                          cfg.dtypes.params_dtype, dev)
-    return _unstack_params(stacked)
+    return materialize(param_defs(cfg), generator, cfg.dtypes.params_dtype,
+                       dev)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: "torch.device | str | None" = None) -> dict:
+    """``init_stacked_params`` in the port's per-layer layout (the
+    serving entry points')."""
+    return _unstack_params(init_stacked_params(cfg, generator, device))
 
 
 def _as_tensor(a, dev: torch.device) -> torch.Tensor:
@@ -150,15 +173,8 @@ def _as_tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.tensor(a, device=dev)      # a copy: JAX's buffers are read-only
 
 
-def model_from_arrays(cfg: ModelConfig, tree: dict,
-                      device: "torch.device | str | None" = None) -> dict:
-    """The port's parameters on ``device`` (CUDA unless named) from the
-    JAX package's parameter tree as nested dicts of numpy arrays
-    (``jax.tree_util.tree_map(np.asarray, params)``): the stacked
-    ``layers`` / ``groups`` / ``encoder`` axes are taken apart, the
-    ``[in, out]`` weight layout is kept."""
-    dev = resolve_device(device)
-
+def _stacked_from_arrays(cfg: ModelConfig, tree: dict,
+                         dev: torch.device) -> dict:
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
@@ -170,19 +186,86 @@ def model_from_arrays(cfg: ModelConfig, tree: dict,
         raise ValueError(f"parameter tree does not match {cfg.name}: "
                          f"missing {sorted(expect - got)}, "
                          f"extra {sorted(got - expect)}")
-    return _unstack_params(conv(tree))
+    return conv(tree)
+
+
+def model_from_arrays(cfg: ModelConfig, tree: dict,
+                      device: "torch.device | str | None" = None) -> dict:
+    """The port's parameters on ``device`` (CUDA unless named) from the
+    JAX package's parameter tree as nested dicts of numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``): the stacked
+    ``layers`` / ``groups`` / ``encoder`` axes are taken apart, the
+    ``[in, out]`` weight layout is kept."""
+    return _unstack_params(_stacked_from_arrays(cfg, tree,
+                                                resolve_device(device)))
+
+
+def train_state_from_arrays(cfg: ModelConfig, params: dict,
+                            opt_state=None,
+                            device: "torch.device | str | None" = None):
+    """The training state ``(params, opt_state)`` on ``device`` (CUDA
+    unless named) from the JAX package's, as numpy
+    (``jax.tree_util.tree_map(np.asarray, (params, opt_state))``), in
+    the reference's stacked layout, which the weight-decay rule and the
+    q8 blocks read: ``params`` as ``param_defs``; ``opt_state`` an
+    ``OptState(step, m, v)`` whose moment leaves are arrays or
+    ``Q8State(codes, scales, size)`` (or None: the second item is then
+    None)."""
+    dev = resolve_device(device)
+    stacked = _stacked_from_arrays(cfg, params, dev)
+    if opt_state is None:
+        return stacked, None
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        if hasattr(tree, "codes"):
+            return Q8State(_as_tensor(tree.codes, dev),
+                           _as_tensor(tree.scales, dev), int(tree.size))
+        return _as_tensor(tree, dev)
+
+    step = torch.tensor(np.asarray(opt_state.step, np.int32), device=dev)
+    return stacked, OptState(step, moments(opt_state.m),
+                             moments(opt_state.v))
 
 
 # ----------------------------------------------------------------------
 # forward (no cache)
 # ----------------------------------------------------------------------
-def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _save_weight_matmuls():
+    """The "selective" policy: save the weight matmuls' outputs
+    (``x @ w``, one ``aten.mm`` on the folded rows; the counterpart of
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default])
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation-checkpoint policy ``remat``, as the
+    reference's ``_maybe_remat`` applies ``cfg.remat`` to a layer (or
+    group) body: "none" saves everything, "full" nothing, "selective"
+    the weight matmuls' outputs."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    extra = {} if remat == "full" else {"context_fn": _save_weight_matmuls}
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    return run
+
+
+def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig,
+                 remat: str = "none") -> torch.Tensor:
     """Whisper encoder over stub frame embeddings [B, T, d]."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(lp, h):
+        return blocks.apply_block(lp, h, cfg, "encoder", positions=positions,
+                                  causal=False)[0]
+
+    body = _maybe_remat(body, remat)
     for lp in params["encoder"]:
-        x, _, _, _ = blocks.apply_block(lp, x, cfg, "encoder",
-                                        positions=positions, causal=False)
+        x = body(lp, x)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -196,9 +279,12 @@ def _forward_impl(
     cfg: ModelConfig,
     enc_inputs: Optional[torch.Tensor],
     want_aux: bool = False,
+    remat: str = "none",
 ) -> Tuple[torch.Tensor, "torch.Tensor | float"]:
     """(logits, the MoE layers' summed load-balancing loss where
-    ``want_aux``, else 0.0)."""
+    ``want_aux``, else 0.0).  ``remat`` is the activation-checkpoint
+    policy of each layer body (each group's, in the grouped models;
+    ``_maybe_remat``): the training loss passes ``cfg.remat``."""
     compute = cfg.dtypes.compute_dtype
     cparams = tree_cast(params, compute)
     b, s = tokens.shape
@@ -207,34 +293,47 @@ def _forward_impl(
 
     enc = None
     if cfg.is_encdec:
-        enc = _run_encoder(cparams, enc_inputs.to(compute), cfg)
+        enc = _run_encoder(cparams, enc_inputs.to(compute), cfg, remat)
         x = x + cparams["dec_pos_emb"][:s][None]
     elif cfg.family == "vlm":
         enc = enc_inputs.to(compute)
 
+    def plain_layers(gp, h):
+        for lp in gp["plain"]:
+            h, _, _, _ = blocks.apply_block(lp, h, cfg, "dense",
+                                            positions=positions)
+        return h
+
     kind = _layer_kind(cfg)
     aux_total = 0.0
     if _vlm_groups(cfg):
+        def body(gp, h):
+            h = plain_layers(gp, h)
+            return blocks.apply_block(gp["cross"], h, cfg, "cross",
+                                      positions=positions, enc=enc)[0]
+        body = _maybe_remat(body, remat)
         for gp in cparams["groups"]:
-            for lp in gp["plain"]:
-                x, _, _, _ = blocks.apply_block(lp, x, cfg, "dense",
-                                                positions=positions)
-            x, _, _, _ = blocks.apply_block(gp["cross"], x, cfg, "cross",
-                                            positions=positions, enc=enc)
+            x = body(gp, x)
     elif _moe_groups(cfg):
-        for gp in cparams["groups"]:
-            for lp in gp["plain"]:
-                x, _, _, _ = blocks.apply_block(lp, x, cfg, "dense",
-                                                positions=positions)
-            x, _, _, aux = blocks.apply_block(gp["moe"], x, cfg, "moe",
+        def body(gp, h):
+            h = plain_layers(gp, h)
+            h, _, _, aux = blocks.apply_block(gp["moe"], h, cfg, "moe",
                                               positions=positions,
                                               want_aux=want_aux)
+            return h, aux
+        body = _maybe_remat(body, remat)
+        for gp in cparams["groups"]:
+            x, aux = body(gp, x)
             aux_total = aux_total + aux
     else:
-        for lp in cparams["layers"]:
-            x, _, _, aux = blocks.apply_block(lp, x, cfg, kind,
+        def body(lp, h):
+            h, _, _, aux = blocks.apply_block(lp, h, cfg, kind,
                                               positions=positions, enc=enc,
                                               want_aux=want_aux)
+            return h, aux
+        body = _maybe_remat(body, remat)
+        for lp in cparams["layers"]:
+            x, aux = body(lp, x)
             aux_total = aux_total + aux
 
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
@@ -252,6 +351,30 @@ def forward(
     """Full-sequence causal forward -> logits [B, S, vocab]."""
     logits, _ = _forward_impl(params, tokens, cfg, enc_inputs)
     return logits
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            aux_coef: float = 0.01) -> torch.Tensor:
+    """Masked next-token cross-entropy in fp32 (+ the MoE load-balance
+    aux loss) of the *stacked* parameter tree (``param_defs``' layout,
+    the training state).  The tree is cast to the compute dtype and
+    taken apart into per-layer views inside every call, so each call
+    builds its own autograd graph and the gradients land on the stacked
+    leaves.  Each layer (group) body runs under ``cfg.remat``."""
+    views = _unstack_params(tree_cast(params, cfg.dtypes.compute_dtype))
+    logits, aux = _forward_impl(views, batch["tokens"], cfg,
+                                batch.get("enc_inputs"),
+                                want_aux=cfg.family == "moe",
+                                remat=cfg.remat)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if cfg.family == "moe":
+        loss = loss + aux_coef * aux
+    return loss
 
 
 forward_train = forward  # the reference's alias

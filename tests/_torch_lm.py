@@ -222,3 +222,70 @@ if __name__ == "__main__":
     for a in ARCHS:
         print(a, *(f"{p} {e:.3e} (bound {t:.3g})" for p in ("fp32", "default")
                    for e, t in [forward_errors(a, p)]), flush=True)
+
+
+# ----------------------------------------------------------------------
+# training (slice 7)
+# ----------------------------------------------------------------------
+# per leaf, max |port grad - reference grad| / max |reference grad|,
+# fp32 policy, b=2, s=16: the largest readings are Whisper's encoder
+# (7.1e-4; its forward amplifies float32 rounding 5000 times) and
+# Qwen's (3.3e-4); the reference's own gradients move up to 2.6e-4
+# under a one-ulp change of its parameters (Whisper), and a second
+# float32 implementation rounds in every op, not only in its inputs
+GRAD_TOL = SPREAD_CAP
+LOSS_RTOL = 1e-5
+
+
+def train_batch(cfg, b: int, s: int, seed: int):
+    """A numpy training batch: tokens, next-token labels, a mask that
+    drops the second row's last quarter, and encoder inputs where the
+    family takes them."""
+    toks, enc = inputs(cfg, b, s + 1, seed)
+    mask = np.ones((b, s), np.float32)
+    if b > 1:
+        mask[1, s - s // 4:] = 0.0
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
+    if enc is not None:
+        out["enc_inputs"] = enc
+    return out
+
+
+def jbatch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def tbatch(batch: dict) -> dict:
+    return {k: tt(v) for k, v in batch.items()}
+
+
+def stacked_params(jc, tc, seed: int):
+    """The reference's parameters and the port's stacked training copy
+    of them (on the CPU)."""
+    jp = _reference_params(repr(JM.param_defs(jc)), jc.dtypes.params, jc,
+                           seed)
+    tp, _ = TM.train_state_from_arrays(
+        tc, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return jp, tp
+
+
+def check_loss_and_grads(arch: str) -> None:
+    """``loss_fn`` and its gradients, fp32 policy, against
+    ``jax.value_and_grad(M.loss_fn)`` on the same parameters and batch:
+    the loss within LOSS_RTOL, every leaf's gradient within GRAD_TOL of
+    its max |reference gradient|."""
+    from repro_torch.launch.steps import _value_and_grad
+    from repro_torch.utils.trees import tree_leaves
+    jc, tc = configs(arch, FP32)
+    jp, tp = stacked_params(jc, tc, seed=0)
+    batch = train_batch(jc, b=2, s=16, seed=1)
+    jl, jg = jax.jit(jax.value_and_grad(JM.loss_fn), static_argnums=2)(
+        jp, jbatch(batch), jc)
+    tl, tg = _value_and_grad(tp, tbatch(batch), tc)
+    assert tl.dtype == torch.float32 and np.isfinite(float(tl))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    got, want = tree_leaves(tg), jax.tree_util.tree_leaves(jg)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32
+        assert rel_err(g, w) < GRAD_TOL

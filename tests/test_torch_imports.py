@@ -66,7 +66,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.steps", "repro_torch.launch.serve",
             "repro_torch.utils.trees", "repro_torch.configs.smollm_360m",
             "repro_torch.configs.mamba2_780m",
-            "repro_torch.configs.llama4_maverick_400b_a17b"} <= names
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.optimizer", "repro_torch.optimizer.adamw",
+            "repro_torch.optimizer.quantized",
+            "repro_torch.optimizer.schedules",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.data.pipeline", "repro_torch.data.tokenizer",
+            "repro_torch.launch.train"} <= names
 
 
 def _imported_roots(path: pathlib.Path):
@@ -99,13 +105,21 @@ def test_default_device_is_cuda_and_raises_without_gpu():
     assert ApproxIndex(**kw, device="cpu").device == torch.device("cpu")
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models.model import init_decode_state, init_params
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import (init_decode_state, init_params,
+                                          init_stacked_params)
     cfg = get_config("smollm_360m", smoke=True)
     params = init_params(cfg, device="cpu")
     assert params["tok_emb"].device == torch.device("cpu")
+    assert init_stacked_params(cfg, device="cpu")["tok_emb"].device.type == "cpu"
+    train_argv = ["--smoke", "--steps", "1", "--batch", "1", "--seq", "8",
+                  "--n-docs", "20"]
     if torch.cuda.is_available():
         assert ApproxIndex(**kw).device.type == "cuda"
         assert init_params(cfg)["tok_emb"].device.type == "cuda"
+        assert init_stacked_params(cfg)["tok_emb"].device.type == "cuda"
+        run = train_main(train_argv)
+        assert run.params["tok_emb"].device.type == "cuda"
         assert init_decode_state(cfg, 1, 8).pos.device.type == "cuda"
         assert serve(cfg, 1, 4, 2).tokens.shape == (1, 2)
         return
@@ -117,6 +131,12 @@ def test_default_device_is_cuda_and_raises_without_gpu():
         init_decode_state(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(cfg, 1, 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_stacked_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(train_argv)
+    assert train_main(train_argv + ["--device", "cpu"]).params[
+        "tok_emb"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(ValueError):
