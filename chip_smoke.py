@@ -243,6 +243,22 @@ Phases, each of which raises (exit code not 0) on any failure:
                 one step from one state repeats bit for bit.  Rows 1 and
                 11 are also held against their plain versions at the
                 training path's shapes.
+ 20. distributed — the sharded side on one card: (a) a one-rank NCCL
+                process group made through a ``HashStore`` and
+                ``make_host_mesh("cuda")``'s (1, 1) (data, model) mesh;
+                (b) ``launch/train`` for smollm-360m at full width through
+                that mesh, phase 19's arguments cut to 6 steps with a
+                checkpoint every 3 (the state placed as DTensors by
+                ``params_shardings`` / ``opt_state_shardings``, the
+                sharded step), rows 1 and 11 counted on path
+                ``lm_train_mesh``; (c) the sharded step against the
+                unsharded step from (b)'s state on one batch with part of
+                a row masked, micro-batches 1 and 2: parameters, moments
+                and loss equal bit for bit; (d) ``compressed_tree_psum``
+                on the NCCL group equal bit for bit to
+                ``quantize_roundtrip`` of the same tree; (e) a note that
+                one card cannot time a multi-GPU step (none is
+                modelled); (f) the process group destroyed.
 
 Each of the main paths (serving, megascan, top-k, their sym
 counterparts, training, k-means, the offline build, ingest, the stack
@@ -250,7 +266,7 @@ and recommendation) is driven with the launch counters set to 0 just
 before it and read just after; each of its kernels must have launched,
 and launches made only to hold one route against another are left out.
 The LM serving path (phase 18) has no kernel: its counts must read 0;
-the LM training path (phase 19) launches rows 1 and 11.
+the LM training paths (phases 19 and 20) launch rows 1 and 11.
 Row 5 runs on four paths (the sym batch, the shard-granular planning,
 the sym top-k, recommendation): its record's ``launches`` is the sym
 batch's count and ``launches_by_path`` has each path's own; so do rows
@@ -3353,6 +3369,168 @@ def train_phase_lm(dev: torch.device, args, kernels: list) -> None:
     log(f"   phase 19 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 20: the distributed side on one card
+# ----------------------------------------------------------------------
+MESH_STEPS = 6              # (b): launch/train through the mesh
+MESH_CKPT_EVERY = 3
+
+
+def mesh_train(dev: torch.device, kernels: list):
+    """(b): ``launch/train`` through the initialised one-rank world;
+    returns its run."""
+    import tempfile
+    from repro_torch.launch import train as T
+
+    names = ["asym_exp_similarity", "negsamp_grads"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = train_argv(ckpt, MESH_STEPS)
+        argv[argv.index("--ckpt-every") + 1] = str(MESH_CKPT_EVERY)
+        zero_counts(names)
+        run = T.main(argv)
+        launches = read_counts(names)
+    require_launched(launches, "lm_train_mesh")
+    add_path(kernels, "lm_train_mesh", launches)
+    losses = list(run.losses.values())
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"logged losses not all finite: {run.losses}")
+    log(f"   (b) launch/train {TRAIN_ARCH} through the (1, 1) mesh, "
+        f"{MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, a checkpoint "
+        f"every {MESH_CKPT_EVERY}: logged losses "
+        f"{[round(x, 4) for x in losses]}; set-up "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in run.setup_s.items()))
+    log_walls("(b) the steps after the first", run.step_s[1:],
+              TRAIN_BATCH * TRAIN_SEQ)
+    log(f"       first step {run.step_s[0] * 1e3:.3f} ms; checkpoint "
+        f"snapshots {[round(x, 3) for x in run.save_s]} s")
+    return run
+
+
+MESH_TIMED = 10             # (c): timed pairs, the first side alternating
+
+
+def sharded_vs_plain(dev: torch.device, mesh, run) -> None:
+    """(c): one step of each from (b)'s state on one batch, micro-batches
+    1 and 2: parameters, moments and loss bit for bit; then
+    ``MESH_TIMED`` pairs of one unsharded and one sharded step (on
+    state placed once), the side that runs first alternating."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import full_tree, place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.optimizer.adamw import AdamWConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = AdamWConfig(state_dtype=cfg.dtypes.opt_state)
+    batch = fixed_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 5, dev)
+    batch["mask"][1, TRAIN_SEQ // 2:] = 0.0
+
+    def wall(fn, *args) -> tuple:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t, out
+
+    for mb in (1, 2):
+        kw = dict(microbatches=mb, total_steps=TRAIN_STEPS[1])
+        plain = ST.make_train_step(cfg, opt_cfg, **kw)
+        sharded = ST.make_train_step(cfg, opt_cfg, mesh=mesh, **kw)
+        place_s, (sp, so) = wall(lambda: (
+            place_tree(run.params, ST.params_shardings(cfg, mesh)),
+            place_tree(run.opt_state, ST.opt_state_shardings(cfg, mesh))))
+        p1, o1, m1 = plain(run.params, run.opt_state, batch)
+        p2, o2, m2 = sharded(sp, so, batch)
+        trees_equal(full_tree((p2, o2)), (p1, o1),
+                    f"(c) sharded step, micro-batches {mb}: parameters and "
+                    f"moments")
+        if not torch.equal(m1["loss"], m2["loss"]):
+            raise AssertionError(f"(c) micro-batches {mb}: loss "
+                                 f"{float(m2['loss'])} != {float(m1['loss'])}")
+        if sharded.collectives.kinds:
+            raise AssertionError(f"(c) a one-rank mesh launched "
+                                 f"{sharded.collectives.kinds}")
+        del p1, o1, p2, o2
+        walls = {"plain": [], "sharded": []}
+        steps = {"plain": (plain, run.params, run.opt_state),
+                 "sharded": (sharded, sp, so)}
+        for i in range(MESH_TIMED):
+            for side in (("plain", "sharded") if i % 2 == 0
+                         else ("sharded", "plain")):
+                fn, p, o = steps[side]
+                walls[side].append(wall(fn, p, o, batch)[0] * 1e3)
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        diff = np.subtract(walls["sharded"], walls["plain"])
+        log(f"   (c) micro-batches {mb}: the sharded step equal bit for "
+            f"bit to the unsharded one (loss {float(m1['loss']):.6f}, every "
+            f"parameter and moment), no collective launched; {MESH_TIMED} "
+            f"pairs: unsharded {med['plain']:.3f} ms median (quartiles "
+            f"{np.percentile(walls['plain'], 25):.3f}-"
+            f"{np.percentile(walls['plain'], 75):.3f}), sharded "
+            f"{med['sharded']:.3f} ms ("
+            f"{np.percentile(walls['sharded'], 25):.3f}-"
+            f"{np.percentile(walls['sharded'], 75):.3f}); sharded minus "
+            f"unsharded a pair: median {float(np.median(diff)):.3f} ms, "
+            f"sharded faster in {int((diff < 0).sum())} of {MESH_TIMED}; "
+            f"placing the state {place_s * 1e3:.3f} ms")
+        del sp, so
+
+
+def compression_on_nccl(dev: torch.device, mesh) -> None:
+    """(d): ``compressed_tree_psum`` over the one-rank data axis against
+    ``quantize_roundtrip`` of the same tree, bit for bit."""
+    from repro_torch.distributed.compression import (
+        compressed_tree_psum,
+        quantize_roundtrip,
+    )
+    from repro_torch.utils.trees import tree_leaves
+    g = torch.Generator(device=dev).manual_seed(21)
+    tree = {"wq": torch.randn((32, 960, 960), generator=g, device=dev),
+            "tok_emb": torch.randn((49152, 960), generator=g, device=dev),
+            "norm": torch.randn((32, 960), generator=g, device=dev)}
+    err = {k: 1e-3 * torch.randn(v.shape, generator=g, device=dev)
+           for k, v in tree.items()}
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    summed, new_err = compressed_tree_psum(tree, "data", err, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    for (k, x), got, got_err in zip(sorted(tree.items()),
+                                    tree_leaves(summed), tree_leaves(new_err)):
+        want, want_err = quantize_roundtrip(x + err[k])
+        if not (torch.equal(got, want) and torch.equal(got_err, want_err)):
+            raise AssertionError(f"(d) {k}: compressed_psum is not "
+                                 f"quantize_roundtrip bit for bit")
+    n = sum(x.numel() for x in tree.values())
+    log(f"   (d) compressed_tree_psum of {n} floats on the NCCL group "
+        f"({wall * 1e3:.3f} ms): sums and residuals equal "
+        f"quantize_roundtrip's bit for bit")
+
+
+def dist_phase(dev: torch.device, kernels: list) -> None:
+    """Phase 20: the distributed side on one card (module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before phase 20")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+        log(f"   (a) one-rank NCCL group through a HashStore; mesh {mesh}")
+        run = mesh_train(dev, kernels)
+        sharded_vs_plain(dev, mesh, run)
+        del run
+        torch.cuda.empty_cache()
+        compression_on_nccl(dev, mesh)
+        log("   (e) one H100 cannot time a multi-GPU step: no multi-GPU "
+            "time is measured here and none is modelled")
+    finally:
+        dist.destroy_process_group()
+    log(f"   (f) process group destroyed; phase 20 wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3433,6 +3611,10 @@ def main(argv=None) -> int:
         f"({', '.join(a for a, _ in FALL)}), gradients against the CPU, "
         f"every architecture at smoke width")
     train_phase_lm(dev, args, kernels)
+    log(f"== distributed on {card}: a one-rank NCCL mesh, launch/train "
+        f"{TRAIN_ARCH} through it, the sharded step against the unsharded "
+        f"step, the compressed all-reduce")
+    dist_phase(dev, kernels)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

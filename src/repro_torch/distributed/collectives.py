@@ -1,0 +1,151 @@
+"""The sharded train step's collectives, run explicitly where GSPMD
+inserts them for the JAX package.
+
+The training state lies as shards (``launch/steps.params_shardings``);
+the model computes on plain tensors.  ``MeshAxes`` holds a
+``DeviceMesh``'s process group and this rank's coordinate for every
+axis larger than 1, and launches the collectives over them, counting
+each (``CollectiveLog``).  ``gather_shards`` gathers a parameter shard
+into the whole tensor as an autograd function whose backward hands
+each rank the gradient of its own shard:
+
+  * over an axis that carries the batch (``pod``, ``data``: its ranks
+    computed on other rows), the gradients are summed and sliced
+    (``reduce_scatter``);
+  * over an axis that does not (``model``: its ranks computed on the
+    same rows), the rank keeps its slice, with no sum.
+
+An axis of size 1 launches nothing.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import mesh_axis_names, mesh_shape
+
+# torch >= 2.13 names them *_single; older releases have only these
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+class CollectiveLog:
+    """Count and output bytes of the collectives launched, by kind."""
+
+    def __init__(self):
+        self.kinds: Dict[str, Dict[str, float]] = {}
+
+    def add(self, kind: str, out: torch.Tensor) -> None:
+        k = self.kinds.setdefault(kind, {"count": 0, "bytes": 0})
+        k["count"] += 1
+        k["bytes"] += out.numel() * out.element_size()
+
+
+class MeshAxes:
+    """A ``DeviceMesh``'s axes of size > 1: their process groups, this
+    rank's coordinate on each, and the collectives over them."""
+
+    def __init__(self, mesh, log: CollectiveLog):
+        self.mesh = mesh
+        self.size = mesh_shape(mesh)
+        self.coord = dict(zip(mesh_axis_names(mesh), mesh.get_coordinate()))
+        self.groups = {a: mesh.get_group(a)
+                       for a, n in self.size.items() if n > 1}
+        self.log = log
+
+    def live(self, axes: Iterable[str]) -> Tuple[str, ...]:
+        """The axes of ``axes`` larger than 1, in the given order."""
+        return tuple(a for a in axes if self.size[a] > 1)
+
+    def linear_rank(self, axes: Tuple[str, ...]) -> int:
+        """This rank's row-major index over ``axes`` (the first major),
+        the chunk a dim split over them in that order gives it."""
+        r = 0
+        for a in axes:
+            r = r * self.size[a] + self.coord[a]
+        return r
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """The shards of ``axis``'s ranks concatenated along ``dim``."""
+        n = self.size[axis]
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+        _all_gather(out, src, group=self.groups[axis])
+        self.log.add("all-gather", out)
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        """The sum over ``axis``'s ranks, this rank's chunk of ``dim``."""
+        n = self.size[axis]
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        _reduce_scatter(out, src, group=self.groups[axis])
+        self.log.add("reduce-scatter", out)
+        return out.movedim(0, dim)
+
+    def chunk(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """This rank's chunk of ``dim`` over ``axis``, no communication."""
+        n = x.shape[dim] // self.size[axis]
+        return x.narrow(dim, self.coord[axis] * n, n)
+
+    def all_reduce(self, x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
+        """``x`` summed over each of ``axes`` larger than 1 (in place
+        where ``x`` is contiguous; a collective writes no strided
+        view, so another tensor comes back for one)."""
+        live = self.live(axes)
+        if live and not x.is_contiguous():
+            x = x.contiguous()
+        for a in live:
+            dist.all_reduce(x, group=self.groups[a])
+            self.log.add("all-reduce", x)
+        return x
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes: MeshAxes, plan):
+        ctx.axes, ctx.plan = axes, plan
+        for dim, axis, _ in plan:
+            x = axes.all_gather(x, dim, axis)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, axis, batch in reversed(ctx.plan):
+            g = (ctx.axes.reduce_scatter(g, dim, axis) if batch
+                 else ctx.axes.chunk(g, dim, axis))
+        return g, None, None
+
+
+def gather_shards(x: torch.Tensor, axes: MeshAxes, plan) -> torch.Tensor:
+    """The whole tensor from this rank's shard ``x``.  ``plan`` is a
+    tuple of (tensor dim, mesh axis, the axis carries the batch), the
+    gathers in order: within a dim the last (minor) mesh axis first.
+    An empty plan returns ``x`` itself."""
+    return _GatherShards.apply(x, axes, plan) if plan else x
+
+
+def shard_plan(spec, axes: MeshAxes, batch_axes) -> tuple:
+    """The gather plan of a tensor placed by ``spec`` (a legalized
+    PartitionSpec): one entry per split (dim, axis) of size > 1."""
+    plan = []
+    for dim, entry in enumerate(spec):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        for a in reversed(axes.live(names)):
+            plan.append((dim, a, a in batch_axes))
+    return tuple(plan)
+
+
+def split_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec splits some dim over."""
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)

@@ -1,49 +1,267 @@
-"""Step functions: ``make_train_step`` builds loss -> grad ->
-(micro-batched accumulation) -> AdamW update; ``make_prefill_step`` /
-``make_decode_step`` wrap the model's serving entry points.  (The
-sharding trees of the JAX package's module wait for the distributed
-slice.)"""
+"""Step functions and their sharding trees.
+
+``make_train_step`` builds loss -> grad -> (micro-batched accumulation)
+-> AdamW update; ``make_prefill_step`` / ``make_decode_step`` wrap the
+model's serving entry points.  The sharding trees map every argument to
+``NamedSharding``s derived from the logical rules, legalized so that
+every split dim divides (``legalize_sharding``), so launch code never
+hand-writes specs per architecture.
+
+**The sharded step** (``make_train_step(..., mesh=)``).  The state is
+placed as shards (``distributed.sharding.place_tree`` by
+``params_shardings`` / ``opt_state_shardings``); the model computes on
+plain tensors, with the collectives run explicitly
+(``distributed/collectives.py``):
+
+  * the global batch is cut into micro-batches first (micro-batch i is
+    rows [i b/mb, (i+1) b/mb)), then each is split over
+    ``batch_axes(mesh, b // mb)``;
+  * each parameter is gathered whole where the forward reads it: the
+    top-level leaves once a micro-batch, each layer's slice inside its
+    (rematerialized) body; the gather's backward reduce-scatters over
+    the batch axes and slices over the others;
+  * a leaf's gradient is all-reduced over the batch axes it is not
+    split on;
+  * each rank's loss and gradients are weighted by its share of the
+    mask count (all-reduced first), so the loss is the reference's
+    global mean whatever the masks;
+  * the clipping norm sums each leaf's squares over the axes it is
+    split on, then over the leaves;
+  * AdamW runs on the local shards (its math is elementwise).
+
+Axes of size 1 launch nothing and weigh nothing, so on a mesh of one
+device the step is the unsharded step op for op.  Not supported: q8
+moments under a sharded mesh (their quantisation blocks are the whole
+leaf's) and the MoE family with the batch split (its load-balancing
+loss and dispatch capacity are over the whole batch).
+"""
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.collectives import (
+    CollectiveLog,
+    MeshAxes,
+    gather_shards,
+    shard_plan,
+    split_axes,
+)
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    P,
+    legalize_spec,
+    logical_to_mesh_spec,
+    mesh_shape,
+    set_rules,
+)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.optimizer.adamw import AdamWConfig, adamw_update
+from repro_torch.optimizer.adamw import (
+    AdamWConfig,
+    OptState,
+    adamw_init,
+    adamw_update,
+)
 from repro_torch.optimizer.schedules import cosine_warmup_schedule
-from repro_torch.utils.trees import tree_leaves, tree_unflatten
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
 
-def _value_and_grad(params, batch, cfg: ModelConfig):
-    """(loss, gradient tree of ``params``) of ``M.loss_fn``; a leaf the
-    loss does not reach gets a zero gradient, as JAX gives it."""
+# ----------------------------------------------------------------------
+# sharding trees
+# ----------------------------------------------------------------------
+def batch_axes(mesh, global_batch: int) -> Tuple[str, ...]:
+    """The (pod, data) axes, in that order, taken while their product
+    divides the batch."""
+    sizes = mesh_shape(mesh)
+    chosen: list = []
+    prod = 1
+    for a in ("pod", "data"):
+        if a in sizes and global_batch % (prod * sizes[a]) == 0:
+            chosen.append(a)
+            prod *= sizes[a]
+    return tuple(chosen)
+
+
+def legalize_sharding(sharding: NamedSharding,
+                      shape: Tuple[int, ...]) -> NamedSharding:
+    """Argument shardings must divide each dimension exactly: mesh axes
+    that don't divide (kv_heads=8 on a 16-way model axis, Whisper's odd
+    vocab 51865) are dropped, leaving that dim replicated."""
+    return NamedSharding(sharding.mesh,
+                         legalize_spec(sharding.spec, tuple(shape),
+                                       sharding.mesh))
+
+
+def legalize_tree(shardings, abstract):
+    leaves = [legalize_sharding(sh, ab.shape)
+              if isinstance(sh, NamedSharding) else sh
+              for sh, ab in zip(tree_leaves(shardings), tree_leaves(abstract))]
+    return tree_unflatten(shardings, leaves)
+
+
+def _map_defs(fn, tree):
+    """``fn`` over the leaves of a nested dict whose leaves are
+    ``ParamDef``s or logical-axis tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_defs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_shardings(cfg: ModelConfig, mesh, serve: bool = False):
+    """Parameter shardings.  ``serve=True`` drops the FSDP axis: with no
+    optimizer state to shard, replicating params over ``data`` removes
+    the per-layer gathers from every decode step at a small memory
+    cost."""
+    def build():
+        return _map_defs(
+            lambda ax: NamedSharding(mesh, logical_to_mesh_spec(ax, mesh)),
+            M.logical_axes(cfg))
+    if serve:
+        with set_rules({"fsdp": None}):
+            raw = build()
+    else:
+        raw = build()
+    return legalize_tree(raw, abstract_params(cfg))
+
+
+def opt_state_shardings(cfg: ModelConfig, mesh) -> OptState:
+    p_sh = params_shardings(cfg, mesh)
+    return OptState(step=NamedSharding(mesh, P()), m=p_sh, v=p_sh)
+
+
+def batch_shardings(cfg: ModelConfig, mesh, global_batch: int,
+                    with_enc: bool) -> dict:
+    ba = batch_axes(mesh, global_batch)
+    spec2 = NamedSharding(mesh, P(ba if ba else None, None))
+    out = {"tokens": spec2, "labels": spec2, "mask": spec2}
+    if with_enc:
+        out["enc_inputs"] = NamedSharding(mesh, P(ba if ba else None,
+                                                  None, None))
+    return out
+
+
+def decode_state_shardings(cfg: ModelConfig, mesh,
+                           state_abstract: M.DecodeState,
+                           global_batch: int) -> M.DecodeState:
+    """Sharding tree matching a DecodeState: batch over (pod, data), kv
+    heads / ssm heads / d_inner over model, everything else replicated.
+    The port's ``length`` is a Python int; its slot holds a replicated
+    spec, so the leaves line up with the reference's one for one."""
+    ba = batch_axes(mesh, global_batch)
+    b_ax = ba if ba else None
+
+    def legal(spec, a):
+        return legalize_sharding(NamedSharding(mesh, spec), a.shape)
+
+    def kv_spec(a):
+        # the cache's seq over "model" (context parallelism): kv-head
+        # counts rarely divide a 16-way axis, 32k / 500k sequences do
+        if a.ndim == 6:    # [G, per, B, S, KH, hd] (vlm / moe groups)
+            return legal(P(None, None, b_ax, "model", None, None), a)
+        return legal(P(None, b_ax, "model", None, None), a)   # [L, B, S, KH, hd]
+
+    kv = (tree_map(kv_spec, state_abstract.kv)
+          if state_abstract.kv is not None else None)
+    ssm = None
+    if state_abstract.ssm is not None:
+        st, cv = state_abstract.ssm
+        ssm = (legal(P(None, b_ax, "model", None, None), st),
+               legal(P(None, b_ax, None, "model"), cv))
+    pos = (NamedSharding(mesh, P(None))
+           if state_abstract.pos is not None else None)
+    enc = (legal(P(b_ax, None, None), state_abstract.enc)
+           if state_abstract.enc is not None else None)
+    return M.DecodeState(kv=kv, ssm=ssm, pos=pos,
+                         length=NamedSharding(mesh, P()), enc=enc)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as ``meta`` tensors (shape and dtype, no
+    storage)."""
+    dt = cfg.dtypes.params_dtype
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
+                     M.param_defs(cfg))
+
+
+def abstract_opt_state(cfg: ModelConfig, opt_cfg: AdamWConfig) -> OptState:
+    return adamw_init(abstract_params(cfg), opt_cfg)
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                          with_enc: bool) -> M.DecodeState:
+    """``init_decode_state``'s tree as ``meta`` tensors (built under a
+    ``FakeTensorMode``: nothing is allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        enc = None
+        if with_enc:
+            t = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+            enc = torch.zeros((batch, t, cfg.d_model),
+                              dtype=cfg.dtypes.compute_dtype)
+        state = M.init_decode_state(cfg, batch, max_len, enc=enc,
+                                    device="cpu")
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta")
+                    if isinstance(x, torch.Tensor) else x, state)
+
+
+# ----------------------------------------------------------------------
+# step functions
+# ----------------------------------------------------------------------
+def _value_and_grad(params, batch, cfg: ModelConfig, gather=None,
+                    scale: Optional[torch.Tensor] = None):
+    """(loss, gradient tree of ``params``) of ``M.loss_fn`` (times
+    ``scale`` where given); a leaf the loss does not reach gets a zero
+    gradient, as JAX gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = M.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+    loss = M.loss_fn(tree_unflatten(params, leaves), batch, cfg,
+                     gather=gather)
+    if scale is not None:
+        loss = loss * scale
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def _check_split(b: int, microbatches: int) -> None:
+    if microbatches > 1 and b % microbatches:
+        raise ValueError(f"a batch of {b} rows does not split into "
+                         f"{microbatches} micro-batches")
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     microbatches: int = 1, total_steps: int = 10000,
                     warmup_steps: int = 200,
-                    accum_dtype: Optional[torch.dtype] = None):
+                    accum_dtype: Optional[torch.dtype] = None, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params,
     opt_state, metrics) over the stacked parameter tree.  With
-    ``microbatches`` > 1 the batch is split along its first axis and the
-    gradients are summed in ``accum_dtype`` (default fp32) in batch
-    order, then divided by ``microbatches``; the loss is the mean of the
+    ``microbatches`` > 1 the batch is split along its first axis (which
+    must divide; a ``ValueError`` otherwise) and the gradients are
+    summed in ``accum_dtype`` (default fp32) in batch order, then
+    divided by ``microbatches``; the loss is the mean of the
     micro-batches' losses.  The lr scale is the cosine-warmup schedule
     at ``opt_state.step`` before the update (so the first update of a
     run with ``warmup_steps`` > 0 has lr 0).  ``metrics`` holds
     ``loss``, ``grad_norm`` and ``lr`` as 0-dim tensors on the device
-    (reading one synchronises)."""
+    (reading one synchronises).
+
+    With a ``DeviceMesh`` ``mesh`` the step is the sharded one (module
+    docstring): ``params`` and ``opt_state`` are trees of DTensors
+    placed by ``params_shardings`` / ``opt_state_shardings`` (or of
+    this rank's local shards), the batch is the global batch on every
+    rank, and the step's ``collectives`` attribute counts what it
+    launched."""
     acc_dt = accum_dtype or torch.float32
+    if mesh is not None:
+        return _sharded_train_step(cfg, opt_cfg, microbatches, total_steps,
+                                   warmup_steps, acc_dt, mesh)
 
     def train_step(params, opt_state, batch):
+        _check_split(batch["tokens"].shape[0], microbatches)
         if microbatches <= 1:
             loss, grads = _value_and_grad(params, batch, cfg)
         else:
@@ -68,6 +286,164 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    return train_step
+
+
+_STACKED = ("layers", "encoder", "groups")
+
+
+class _Gather:
+    """The sharded step's ``gather(section, tree)`` (``models/model.py``):
+    a tree of the per-layer views' leaves, each gathered whole by the
+    plan of its stacked leaf's spec with the stacked dims dropped
+    (they are never split: the "layers" rule is None)."""
+
+    def __init__(self, shardings: dict, axes: MeshAxes, batch: set):
+        def plans(tree, drop):
+            if isinstance(tree, dict):
+                return {k: plans(v, drop) for k, v in tree.items()}
+            if any(e is not None for e in tree.spec[:drop]):
+                raise ValueError(f"a stacked axis is split: {tree.spec}")
+            return shard_plan(tree.spec[drop:], axes, batch)
+
+        self.axes = axes
+        self.plans = {"top": {k: plans(v, 0) for k, v in shardings.items()
+                              if k not in _STACKED}}
+        for name in ("layers", "encoder"):
+            if name in shardings:
+                self.plans[name] = plans(shardings[name], 1)
+        if "groups" in shardings:
+            self.plans["groups"] = {k: plans(v, 2 if k == "plain" else 1)
+                                    for k, v in shardings["groups"].items()}
+
+    def __call__(self, section: str, tree):
+        return self._walk(tree, self.plans[section])
+
+    def _walk(self, tree, plans):
+        if isinstance(tree, list):
+            return [self._walk(t, plans) for t in tree]
+        if isinstance(tree, dict):
+            return {k: self._walk(v, plans[k]) if k in plans else v
+                    for k, v in tree.items()}
+        return gather_shards(tree, self.axes, plans)
+
+
+def _local(x):
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _like(new_tree, old_tree):
+    """``new_tree``'s local tensors as DTensors placed as the leaves of
+    ``old_tree`` are (plain leaves stay plain)."""
+    from torch.distributed.tensor import DTensor
+
+    def wrap(new, old):
+        if not isinstance(old, DTensor):
+            return new
+        return DTensor.from_local(new, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
+    return tree_unflatten(new_tree, [wrap(n, o) for n, o in zip(
+        tree_leaves(new_tree), tree_leaves(old_tree))])
+
+
+def _mask_count(mb: dict) -> torch.Tensor:
+    mask = mb.get("mask")
+    if mask is None:
+        return torch.tensor(float(mb["tokens"].numel()),
+                            device=mb["tokens"].device)
+    return mask.sum()
+
+
+def _global_norm(grads: list, split: list, axes: MeshAxes) -> torch.Tensor:
+    """``tree_global_norm`` of the whole gradient from local shards:
+    each leaf's sum of squares is summed over the axes it is split on
+    (one all-reduce per set of axes), then over the leaves in order."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    by_axes: dict = {}
+    for i, names in enumerate(split):
+        live = axes.live(names)
+        if live:
+            by_axes.setdefault(live, []).append(i)
+    for live, idx in by_axes.items():
+        v = axes.all_reduce(torch.stack([sq[i] for i in idx]), live)
+        for j, i in enumerate(idx):
+            sq[i] = v[j]
+    return torch.sqrt(sum(sq))
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                        microbatches: int, total_steps: int,
+                        warmup_steps: int, acc_dt: torch.dtype, mesh):
+    shardings = params_shardings(cfg, mesh)
+    sizes = mesh_shape(mesh)
+    split = [split_axes(sh.spec) for sh in tree_leaves(shardings)]
+    if opt_cfg.state_dtype == "q8" and any(
+            sizes[a] > 1 for names in split for a in names):
+        raise ValueError(
+            "q8 moments under a mesh that splits a leaf: a local shard's "
+            "quantisation blocks are not the whole leaf's; use float32 "
+            "or bfloat16 moments")
+    if cfg.family == "moe" and any(sizes.get(a, 1) > 1
+                                   for a in ("pod", "data")):
+        raise ValueError(
+            "the MoE family on a mesh that splits the batch: its "
+            "load-balancing loss and dispatch capacity are over the whole "
+            "batch (expert parallelism is not ported)")
+    log = CollectiveLog()
+    axes = MeshAxes(mesh, log)
+
+    def train_step(params, opt_state, batch):
+        b = batch["tokens"].shape[0]
+        _check_split(b, microbatches)
+        b_mb = b // microbatches
+        batch_ax = axes.live(batch_axes(mesh, b_mb))
+        rows = b_mb // math.prod(sizes[a] for a in batch_ax)
+        first = axes.linear_rank(batch_ax) * rows
+        mbs = [{k: v[i * b_mb + first:i * b_mb + first + rows]
+                for k, v in batch.items()} for i in range(microbatches)]
+        scales = [None] * microbatches
+        if batch_ax:
+            counts = torch.stack([_mask_count(mb) for mb in mbs])
+            total = axes.all_reduce(counts.clone(), batch_ax)
+            scales = list(torch.clamp(counts, min=1.0)
+                          / torch.clamp(total, min=1.0))
+        p_loc = tree_map(_local, params)
+        o_loc = tree_map(_local, opt_state)
+        # a mesh of one device gathers nothing: no walk of the views
+        gather = _Gather(shardings, axes, set(batch_ax)) if axes.groups \
+            else None
+
+        acc, losses = None, []
+        for mb, scale in zip(mbs, scales):
+            loss_i, g = _value_and_grad(p_loc, mb, cfg, gather, scale)
+            g = tree_leaves(g)
+            if microbatches > 1:
+                g = [x.to(acc_dt) for x in g]
+                acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+            else:
+                acc = g
+            losses.append(loss_i)
+        acc = [axes.all_reduce(x, [a for a in batch_ax if a not in names])
+               for x, names in zip(acc, split)]
+        grads = [a / microbatches for a in acc] if microbatches > 1 else acc
+        if batch_ax:
+            lv = axes.all_reduce(torch.stack(losses), batch_ax)
+            loss = lv.mean() if microbatches > 1 else lv[0]
+        else:
+            loss = torch.stack(losses).mean() if microbatches > 1 \
+                else losses[0]
+
+        lr_scale = cosine_warmup_schedule(
+            o_loc.step, warmup_steps=warmup_steps, total_steps=total_steps)
+        new_p, new_o, metrics = adamw_update(
+            p_loc, tree_unflatten(p_loc, grads), o_loc, opt_cfg, lr_scale,
+            gnorm=_global_norm(grads, split, axes))
+        metrics["loss"] = loss
+        return _like(new_p, params), _like(new_o, opt_state), metrics
+
+    train_step.collectives = log
     return train_step
 
 

@@ -1,4 +1,4 @@
-"""Training driver: config-driven, fault-tolerant, on one device.
+"""Training driver: config-driven, fault-tolerant, mesh-agnostic.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --steps 200 --batch 8 --seq 256                   # on the GPU
@@ -11,11 +11,16 @@ step), similarity-driven data sampling (``--similarity-prompt``: the
 port's PV-DBOW training, index build and shard probabilities on the
 device, which launch the negative-sampling and asym-similarity
 kernels), loss logging.  The training state is the stacked parameter
-tree and an ``OptState``; batches are assembled and moved to the
-device in a prefetch thread.  There is no mesh: one device.
+tree and an ``OptState``, placed as shards by the logical rules
+(``params_shardings`` / ``opt_state_shardings``) on the host mesh
+(``make_host_mesh``: the initialised world, or a one-rank group made
+for the run and ended with it), and trained by the sharded step; on
+one device every collective is an identity.  A checkpoint holds the
+whole tensors and restores to the device before it is placed.  Batches
+are assembled and moved to the device in a prefetch thread.
 
-``main`` returns a ``TrainRun`` with the final state, the logged
-losses and the walls of the steps, the checkpoint saves and the
+``main`` returns a ``TrainRun`` with the final state (whole tensors),
+the logged losses and the walls of the steps, the checkpoint saves and the
 restore.
 """
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
@@ -37,8 +43,14 @@ from repro_torch.data.pipeline import (
     SimilaritySampler,
 )
 from repro_torch.data.store import ShardedCorpus
+from repro_torch.distributed.sharding import full_tree, place_tree
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import (
+    make_train_step,
+    opt_state_shardings,
+    params_shardings,
+)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optimizer.adamw import AdamWConfig, OptState, adamw_init
@@ -129,6 +141,16 @@ def _similarity_order(corpus: ShardedCorpus, prompt, dev: torch.device
 def train(args: argparse.Namespace) -> TrainRun:
     """The driver's body (see the module docstring)."""
     dev = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    mesh = make_host_mesh(dev)
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, dev: torch.device, mesh) -> TrainRun:
     cfg = get_config(args.arch, smoke=args.smoke)
     cfg = dataclasses.replace(cfg, max_seq_len=max(cfg.max_seq_len, args.seq))
     opt_cfg = AdamWConfig(lr=args.lr, state_dtype=cfg.dtypes.opt_state)
@@ -157,7 +179,7 @@ def train(args: argparse.Namespace) -> TrainRun:
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     opt_state = adamw_init(params, opt_cfg)
     step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches,
-                              total_steps=args.steps)
+                              total_steps=args.steps, mesh=mesh)
     setup["state"] = time.perf_counter() - t
 
     start_step = 0
@@ -172,6 +194,9 @@ def train(args: argparse.Namespace) -> TrainRun:
                 torch.cuda.synchronize(dev)
             setup["restore"] = time.perf_counter() - t
             print(f"[train] resumed from step {start_step}")
+    params = place_tree(params, params_shardings(cfg, mesh))
+    opt_state = place_tree(opt_state, opt_state_shardings(cfg, mesh))
+    writer = dist.get_rank() == 0
 
     # ---------------- loop -------------------------------------------
     run = TrainRun(params=params, opt_state=opt_state, start_step=start_step,
@@ -195,27 +220,33 @@ def train(args: argparse.Namespace) -> TrainRun:
                 print(f"[train] step {step} loss {loss:.4f} "
                       f"gnorm {gn:.3f} tok/s {tps:,.0f}", flush=True)
             if ckpt and (step + 1) % args.ckpt_every == 0:
-                run.save_s.append(_save(ckpt, step + 1, params, opt_state))
+                run.save_s.append(_save(ckpt, step + 1, params, opt_state,
+                                        writer))
                 saved = step + 1
     finally:
         it.close()
     run.step_s = clock.walls()
     if ckpt:
         if saved != args.steps:
-            run.save_s.append(_save(ckpt, args.steps, params, opt_state))
+            run.save_s.append(_save(ckpt, args.steps, params, opt_state,
+                                    writer))
         t = time.perf_counter()
         ckpt.wait()
         run.wait_s = time.perf_counter() - t
-    run.params, run.opt_state = params, opt_state
+    run.params, run.opt_state = full_tree((params, opt_state))
     print(f"[train] done: {args.steps} steps, "
           f"{run.tokens:,} tokens, {time.time()-t0:.1f}s")
     return run
 
 
-def _save(ckpt: CheckpointManager, step: int, params, opt_state) -> float:
-    """Queue a checkpoint; returns the wall of its host snapshot."""
+def _save(ckpt: CheckpointManager, step: int, params, opt_state,
+          writer: bool) -> float:
+    """Queue a checkpoint of the whole tensors (rank 0 writes it);
+    returns the wall of its host snapshot."""
     t = time.perf_counter()
-    ckpt.save(step, (params, opt_state))
+    state = full_tree((params, opt_state))
+    if writer:
+        ckpt.save(step, state)
     return time.perf_counter() - t
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import mesh_axis_size, shard_constraint
 from repro_torch.models.layers import apply_rope, dot_bias
 
 NEG_INF = -1e30
@@ -106,6 +107,15 @@ def chunked_attention(
     dev = q.device
     qpos = torch.arange(s, device=dev)[:, None] + q_offset
 
+    def _pin(m, l, acc):
+        # pin the carry's sharding: query-seq over "model" (context
+        # parallelism), because kv-head counts rarely divide the axis
+        m = shard_constraint(m, "batch", "kv_heads", None, "attn_q_seq")
+        l = shard_constraint(l, "batch", "kv_heads", None, "attn_q_seq")
+        acc = shard_constraint(acc, "batch", "kv_heads", None,
+                               "attn_q_seq", None)
+        return m, l, acc
+
     m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kh, g, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kh, g, s, hd), dtype=torch.float32, device=dev)
@@ -113,6 +123,8 @@ def chunked_attention(
         kci = k[:, ci * chunk:(ci + 1) * chunk]
         vci = v[:, ci * chunk:(ci + 1) * chunk]
         scores = torch.einsum("bskgd,btkd->bkgst", qg, kci) * scale
+        scores = shard_constraint(scores, "batch", "kv_heads", None,
+                                  "attn_q_seq", None)
         kpos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
         mask = kpos < t                        # drop the zero-padding
         if causal:
@@ -127,6 +139,7 @@ def chunked_attention(
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgst,btkd->bkgsd", p, vci.float())
         m = m_new
+        m, l, acc = _pin(m, l, acc)
     out = acc / torch.clamp(l[..., None], min=1e-20)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
 
@@ -227,6 +240,19 @@ def attention_apply(
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    # TP over heads when the head count divides the model axis;
+    # otherwise sequence parallelism (seq always divides the shapes)
+    msize = mesh_axis_size("model")
+    heads_divide = bool(msize) and cfg.n_heads % msize == 0 and \
+        cfg.n_kv_heads % msize == 0
+    if msize is None or heads_divide:
+        q = shard_constraint(q, "batch", "seq", "heads", None)
+        k = shard_constraint(k, "batch", "seq", "kv_heads", None)
+        v = shard_constraint(v, "batch", "seq", "kv_heads", None)
+    elif s > 1:
+        q = shard_constraint(q, "batch", "attn_q_seq", None, None)
+        k = shard_constraint(k, "batch", "attn_q_seq", None, None)
+        v = shard_constraint(v, "batch", "attn_q_seq", None, None)
     if use_rope:
         if positions.ndim == 1:
             positions = positions[None, :]

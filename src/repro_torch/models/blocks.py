@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -201,6 +202,7 @@ def apply_block(
         mix = torch.softmax(p["mix"].float(), dim=-1)
         y = (mix[0] * y.float() + mix[1] * ys.float()).to(dtype)
     x, s32 = _residual(x, y)
+    x = shard_constraint(x, "batch", "seq", "d_model")
     h = _norm32(s32, p["norm2"], cfg, dtype)
     aux = zero
     if kind == "moe":

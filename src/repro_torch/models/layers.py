@@ -14,6 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import shard_constraint
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -110,6 +112,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     h = silu(x @ w_gate) * (x @ w_up)
+    h = shard_constraint(h, "batch", "seq", "d_ff")
     return h @ w_down
 
 
@@ -123,6 +126,7 @@ def dot_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
              w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
     h = gelu_tanh(dot_bias(x, w_in, b_in))
+    h = shard_constraint(h, "batch", "seq", "d_ff")
     return dot_bias(h, w_out, b_out)
 
 

@@ -20,8 +20,14 @@ call casts the parameters to the compute dtype first (``tree_cast``),
 as the reference's ``_cast_tree`` does.  The decode state keeps the
 reference's stacked layout ([L, B, S, KH, hd] caches, [G, per, ...] in
 the grouped models); ``prefill`` and ``decode_step`` write its caches
-in place.  The reference's ``shard_constraint`` calls (no-ops on one
-device) are left out.
+in place.  The reference's ``shard_constraint`` calls sit at its
+sites; on plain tensors they return their argument.
+
+The sharded train step (``launch/steps.py``) passes ``gather``: the
+parameters are then this rank's shards, and ``gather(section, tree)``
+returns a tree's leaves whole.  The top-level leaves are gathered once
+a call, each layer's (group's) inside its body, so that a
+rematerialized body gathers again.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import KVCache, cache_pos_update
@@ -254,12 +261,14 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 
 
 def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig,
-                 remat: str = "none") -> torch.Tensor:
+                 remat: str = "none", gather=None) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings [B, T, d]."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(lp, h):
+        if gather is not None:
+            lp = gather("encoder", lp)
         return blocks.apply_block(lp, h, cfg, "encoder", positions=positions,
                                   causal=False)[0]
 
@@ -280,20 +289,26 @@ def _forward_impl(
     enc_inputs: Optional[torch.Tensor],
     want_aux: bool = False,
     remat: str = "none",
+    gather=None,
 ) -> Tuple[torch.Tensor, "torch.Tensor | float"]:
     """(logits, the MoE layers' summed load-balancing loss where
     ``want_aux``, else 0.0).  ``remat`` is the activation-checkpoint
     policy of each layer body (each group's, in the grouped models;
-    ``_maybe_remat``): the training loss passes ``cfg.remat``."""
+    ``_maybe_remat``): the training loss passes ``cfg.remat``.
+    ``gather``: see the module docstring."""
     compute = cfg.dtypes.compute_dtype
     cparams = tree_cast(params, compute)
+    if gather is not None:
+        cparams = gather("top", cparams)
     b, s = tokens.shape
     x = cparams["tok_emb"][tokens]
+    x = shard_constraint(x, "batch", "seq", "d_model")
     positions = torch.arange(s, device=x.device)
 
     enc = None
     if cfg.is_encdec:
-        enc = _run_encoder(cparams, enc_inputs.to(compute), cfg, remat)
+        enc = _run_encoder(cparams, enc_inputs.to(compute), cfg, remat,
+                           gather)
         x = x + cparams["dec_pos_emb"][:s][None]
     elif cfg.family == "vlm":
         enc = enc_inputs.to(compute)
@@ -308,6 +323,8 @@ def _forward_impl(
     aux_total = 0.0
     if _vlm_groups(cfg):
         def body(gp, h):
+            if gather is not None:
+                gp = gather("groups", gp)
             h = plain_layers(gp, h)
             return blocks.apply_block(gp["cross"], h, cfg, "cross",
                                       positions=positions, enc=enc)[0]
@@ -316,6 +333,8 @@ def _forward_impl(
             x = body(gp, x)
     elif _moe_groups(cfg):
         def body(gp, h):
+            if gather is not None:
+                gp = gather("groups", gp)
             h = plain_layers(gp, h)
             h, _, _, aux = blocks.apply_block(gp["moe"], h, cfg, "moe",
                                               positions=positions,
@@ -327,6 +346,8 @@ def _forward_impl(
             aux_total = aux_total + aux
     else:
         def body(lp, h):
+            if gather is not None:
+                lp = gather("layers", lp)
             h, _, _, aux = blocks.apply_block(lp, h, cfg, kind,
                                               positions=positions, enc=enc,
                                               want_aux=want_aux)
@@ -338,7 +359,7 @@ def _forward_impl(
 
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
     logits = x @ _head(cparams, cfg)
-    return logits, aux_total
+    return shard_constraint(logits, "batch", "seq", "vocab"), aux_total
 
 
 def forward(
@@ -354,18 +375,19 @@ def forward(
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            aux_coef: float = 0.01) -> torch.Tensor:
+            aux_coef: float = 0.01, gather=None) -> torch.Tensor:
     """Masked next-token cross-entropy in fp32 (+ the MoE load-balance
     aux loss) of the *stacked* parameter tree (``param_defs``' layout,
     the training state).  The tree is cast to the compute dtype and
     taken apart into per-layer views inside every call, so each call
     builds its own autograd graph and the gradients land on the stacked
-    leaves.  Each layer (group) body runs under ``cfg.remat``."""
+    leaves.  Each layer (group) body runs under ``cfg.remat``.
+    ``gather``: the sharded step's (see the module docstring)."""
     views = _unstack_params(tree_cast(params, cfg.dtypes.compute_dtype))
     logits, aux = _forward_impl(views, batch["tokens"], cfg,
                                 batch.get("enc_inputs"),
                                 want_aux=cfg.family == "moe",
-                                remat=cfg.remat)
+                                remat=cfg.remat, gather=gather)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     mask = batch.get("mask")
@@ -449,6 +471,7 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
     cparams = tree_cast(params, compute)
     b, s = tokens.shape
     x = cparams["tok_emb"][tokens]
+    x = shard_constraint(x, "batch", "seq", "d_model")
     length = state.length
     positions = torch.arange(length, length + s, device=x.device)
     enc = state.enc
@@ -511,7 +534,7 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
 
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
     logits = x[:, -1, :] @ _head(cparams, cfg)
-    return logits, new_state
+    return shard_constraint(logits, "batch", "vocab"), new_state
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,

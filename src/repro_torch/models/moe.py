@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.models.layers import silu
 
 MAX_DISPATCH_GROUP = 4096
@@ -69,9 +70,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
     # route tokens to experts: [E, G, c, d]
     xe = torch.einsum("gtec,gtd->egcd", disp, tg)
+    xe = shard_constraint(xe, "experts", None, None, "d_model")
     gg = torch.einsum("egcd,edf->egcf", xe, p["w_gate"])
     uu = torch.einsum("egcd,edf->egcf", xe, p["w_up"])
     h = silu(gg) * uu
+    h = shard_constraint(h, "experts", None, None, "d_ff")
     ye = torch.einsum("egcf,efd->egcd", h, p["w_down"])
     out = torch.einsum("gtec,egcd->gtd", comb, ye)
     out = out.reshape(-1, d)

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.models.layers import silu, softplus
 
 
@@ -131,6 +132,7 @@ def ssm_apply(
     (prefill appends S tokens; decode S=1) and returns the new state."""
     bsz, s, _ = x.shape
     z, xin, b, c, dt = _split_proj(p, x, cfg)
+    xin = shard_constraint(xin, "batch", "seq", "d_inner")
     xin, new_conv = _conv1d(xin, p["conv_w"],
                             state.conv if state is not None else None)
     dt = softplus(dt + p["dt_bias"])

@@ -74,9 +74,14 @@ def _is_q8(x) -> bool:
 
 
 def adamw_update(params, grads, opt_state: OptState, cfg: AdamWConfig,
-                 lr_scale: "torch.Tensor | float" = 1.0):
-    """Returns (new_params, new_opt_state, metrics dict)."""
-    gnorm = tree_global_norm(grads)
+                 lr_scale: "torch.Tensor | float" = 1.0,
+                 gnorm: "torch.Tensor | None" = None):
+    """Returns (new_params, new_opt_state, metrics dict).  ``gnorm``,
+    the clipping norm, is ``tree_global_norm(grads)`` unless given (the
+    sharded step passes the whole gradient's norm; ``grads`` are then
+    local shards)."""
+    if gnorm is None:
+        gnorm = tree_global_norm(grads)
     # a tensor divided, not ``scalar / tensor`` (torch takes that as a
     # reciprocal and a product: two roundings)
     clip_coef = (torch.clamp(torch.full_like(gnorm, cfg.grad_clip)

@@ -7,8 +7,9 @@ query runtime placement-aware:
 
 ``PlacementMap`` — the shard -> host residency table, plus ``R``
 replica hosts per shard for failover.  It is derived from the host
-count (``PlacementMap.from_mesh`` takes the number of data hosts; a
-device mesh of the port's own is not there yet) or built directly (``blocked`` mirrors how a mesh axis shards an array
+mesh (``PlacementMap.from_mesh`` reads the residency axes of a mesh;
+``launch.mesh.make_placement_mesh`` describes one without a device) or
+built directly (``blocked`` mirrors how a mesh axis shards an array
 into contiguous blocks; ``round_robin`` stripes).  ``split`` is the
 scheduling primitive: it partitions a set of shard ids into per-host
 groups by residency, falling over to the first live replica for hosts
@@ -81,6 +82,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.distributed.sharding import data_host_count
 from repro_torch.runtime.balance import BalanceAudit, HostLoadModel, plan_split
 from repro_torch.runtime.executor import (
     ShardTaskExecutor,
@@ -154,18 +156,19 @@ class PlacementMap:
         return PlacementMap._with_ring_replicas(primary, n_hosts, n_replicas)
 
     @staticmethod
-    def from_mesh(n_hosts: int, n_shards: int, *,
+    def from_mesh(mesh, n_shards: int, *,
                   n_replicas: int = 1) -> "PlacementMap":
-        """Residency over ``n_hosts`` data hosts, the host count of the
-        data-parallel topology: shards lay out in contiguous blocks
-        exactly like an array sharded across the hosts.  The JAX
-        package reads the count off a device mesh; the port takes the
-        count itself until it has a device mesh of its own."""
-        if isinstance(n_hosts, bool) or not isinstance(
-                n_hosts, (int, np.integer)):
-            raise TypeError(f"from_mesh takes the data host count, got "
-                            f"{type(n_hosts).__name__}")
-        return PlacementMap.blocked(n_shards, int(n_hosts), n_replicas)
+        """Residency read off a mesh's data-residency axes (``pod`` x
+        ``data``, ``distributed.sharding.data_host_count``): shards lay
+        out in contiguous blocks exactly like an array sharded across
+        those hosts.  ``mesh`` is a ``DeviceMesh`` or the shape-only
+        ``AbstractMesh`` (``launch.mesh.make_placement_mesh``), so a
+        simulated topology allocates nothing; a host count is refused."""
+        if isinstance(mesh, (int, np.integer)):
+            raise TypeError("from_mesh takes a mesh, not a host count: "
+                            "use make_placement_mesh(n_hosts)")
+        return PlacementMap.blocked(n_shards, data_host_count(mesh),
+                                    n_replicas)
 
     @staticmethod
     def _with_ring_replicas(primary: np.ndarray, n_hosts: int,

@@ -1,0 +1,173 @@
+"""Worker processes of the port's multi-process CPU tests: gloo over a
+``FileStore`` in the test's temporary directory (no TCP port), one
+thread each.
+
+    PYTHONPATH=src:tests python tests/_torch_dist.py <job> <rank> <world> <dir>
+
+``spawn(job, world, dir)`` starts ``world`` ranks of ``job`` and returns
+what each rank saved (``torch.save``) to ``<dir>/<job>.<rank>.pt``.
+Jobs:
+
+  step      8 ranks: the sharded train step (smoke width, fp32
+            policy, warmup 0, 3 steps) of each of ``STEP_CASES``, from
+            ``step_setup``'s state and batch: smollm on a (4, 2) (data,
+            model) mesh and a (2, 2, 2) (pod, data, model) mesh with
+            micro-batches 1 and 2, and a grouped (VLM) and an SSM arch
+            on the (2, 2, 2) mesh (Whisper, the encoder-decoder, is
+            left out: its smoke model moves 0.45 of a leaf's max under
+            one ulp of its parameters, which no bound can hold; its
+            sharded step read 1.6e-4 from the single-process one);
+  compress  4 ranks: ``compressed_psum`` over a 4-rank axis on
+            ``compress_inputs``, and ``shard_constraint`` on a DTensor
+            of a (2, 2) mesh.
+"""
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DATA_MODEL = ((4, 2), ("data", "model"))
+POD_DATA_MODEL = ((2, 2, 2), ("pod", "data", "model"))
+# (arch, mesh, micro-batches)
+STEP_CASES = tuple(("smollm_360m", mesh, mb)
+                   for mesh in (DATA_MODEL, POD_DATA_MODEL) for mb in (1, 2)) \
+    + tuple((arch, POD_DATA_MODEL, 2) for arch in
+            ("llama_3_2_vision_11b", "mamba2_780m"))
+STEP_COUNT = 3
+STEP_LR = 1e-3
+
+
+def step_setup(arch: str):
+    """(cfg, opt_cfg, params, batch) of the step job: ``arch`` at smoke
+    width under the fp32 policy, seeded parameters, a batch of 8 x 16
+    whose row r has its last r tokens masked (so the ranks' mask counts
+    differ), with seeded encoder inputs where the family takes them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import DTypePolicy
+    from repro_torch.optimizer.adamw import AdamWConfig
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtypes=DTypePolicy("float32", "float32",
+                                                 "float32"))
+    params = M.init_stacked_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    rng = np.random.default_rng(5)
+    b, s = 8, 16
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1)))
+    mask = torch.ones((b, s))
+    for r in range(b):
+        mask[r, s - r:] = 0.0
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
+    if cfg.is_encdec or cfg.family == "vlm":
+        t = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+        batch["enc_inputs"] = torch.from_numpy(rng.standard_normal(
+            (b, t, cfg.d_model)).astype(np.float32))
+    return cfg, AdamWConfig(lr=STEP_LR), params, batch
+
+
+def run_steps(step, params, opt_state, batch, n: int = STEP_COUNT):
+    losses = []
+    for _ in range(n):
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    return params, opt_state, losses
+
+
+def compress_inputs(rank: int):
+    """(x, error) of one rank of the compress job."""
+    rng = np.random.default_rng(100 + rank)
+    x = rng.standard_normal((3, 300)).astype(np.float32)
+    err = (rng.standard_normal((3, 300)) * 1e-3).astype(np.float32)
+    return x, err
+
+
+def _job_step():
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import full_tree, place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.optimizer.adamw import adamw_init
+    meshes = {m: init_device_mesh("cpu", m[0], mesh_dim_names=m[1])
+              for m in (DATA_MODEL, POD_DATA_MODEL)}
+    out = {}
+    for case in STEP_CASES:
+        arch, m, mb = case
+        cfg, opt_cfg, params, batch = step_setup(arch)
+        mesh = meshes[m]
+        step = ST.make_train_step(cfg, opt_cfg, microbatches=mb,
+                                  warmup_steps=0, total_steps=STEP_COUNT,
+                                  mesh=mesh)
+        p = place_tree(params, ST.params_shardings(cfg, mesh))
+        o = place_tree(adamw_init(params, opt_cfg),
+                       ST.opt_state_shardings(cfg, mesh))
+        p, o, losses = run_steps(step, p, o, batch)
+        out[case] = {"params": full_tree(p), "losses": losses,
+                     "collectives": step.collectives.kinds,
+                     "local_tok_emb": tuple(p["tok_emb"].to_local().shape)}
+    return out
+
+
+def _job_compress(rank: int):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.distributed.sharding import shard_constraint, use_mesh
+    ring = init_device_mesh("cpu", (4,), mesh_dim_names=("pod",))
+    x, err = compress_inputs(rank)
+    total, new_err = compressed_psum(torch.from_numpy(x), "pod",
+                                     torch.from_numpy(err), mesh=ring)
+    grid = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    d = distribute_tensor(torch.arange(12.0).reshape(3, 4), grid,
+                          [Replicate(), Replicate()], src_data_rank=None)
+    with use_mesh(grid):
+        got = shard_constraint(d, "batch", "d_ff")
+        plain = torch.ones(3, 4)
+        same = shard_constraint(plain, "batch", "d_ff") is plain
+    return {"sum": total, "new_error": new_err,
+            "placements": [repr(p) for p in got.placements],
+            "local": got.to_local(), "plain_is_same": same}
+
+
+def spawn(job: str, world: int, tmp: pathlib.Path, timeout: float = 240):
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                           str(ROOT / "tests")]))
+    procs = [subprocess.Popen([sys.executable, __file__, job, str(r),
+                               str(world), str(tmp)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0].decode()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, o) for r, (p, o) in enumerate(zip(procs, outs))
+           if p.returncode != 0]
+    assert not bad, bad[0]
+    return [torch.load(tmp / f"{job}.{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def main(job: str, rank: int, world: int, tmp: str) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, f"{job}.store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        out = _job_step() if job == "step" else _job_compress(rank)
+        torch.save(out, os.path.join(tmp, f"{job}.{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -1,0 +1,72 @@
+"""``python -m repro_torch.launch.dryrun`` on the CPU: the smollm-360m
+train_4k cell on the (16, 16) mesh (one rank's sharded step on fake
+tensors over a fake 256-rank world) and a skipped long_500k cell; the
+per-device bytes equal the reference's ``NamedSharding.shard_shape``
+sums over its abstract leaves; a second run without ``--force`` keeps
+the cells written."""
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+from jax.sharding import AbstractMesh
+
+from repro.configs import get_config as jget
+from repro.launch import specs as JSP
+from repro.launch import steps as JST
+from repro.optimizer.adamw import AdamWConfig
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _jbytes(shardings, abstract) -> int:
+    leaves = jax.tree_util.tree_leaves(
+        shardings, is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
+    return sum(math.prod(sh.shard_shape(a.shape)) * a.dtype.itemsize
+               for sh, a in zip(leaves, jax.tree_util.tree_leaves(abstract)))
+
+
+def test_dryrun_cells(tmp_path):
+    from repro_torch.launch import dryrun
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    argv = ["--arch", "smollm-360m", "--shape", "train_4k", "--multi-pod",
+            "single", "--out", str(tmp_path)]
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          *argv], env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    cell = json.loads((tmp_path / "smollm_360m__train_4k__single.json")
+                      .read_text())
+    assert cell["status"] == "ok" and cell["n_devices"] == 256
+    jc = jget("smollm-360m")
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    mem = cell["memory"]
+    assert mem["param_bytes"] == _jbytes(JST.params_shardings(jc, mesh),
+                                         JST.abstract_params(jc))
+    assert mem["opt_state_bytes"] == _jbytes(
+        JST.opt_state_shardings(jc, mesh),
+        JST.abstract_opt_state(jc, AdamWConfig()))
+    assert cell["microbatches"] == JSP.microbatches_for(jc, "train_4k") == 8
+    colls = cell["collectives"]
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(colls)
+    assert all(c["count"] > 0 and c["bytes"] > 0 for c in colls.values())
+    assert cell["flops"] > 0 and cell["peak_live_bytes"] > \
+        mem["param_bytes"] + mem["opt_state_bytes"]
+    assert cell["fits_80gb"] is True
+    assert cell["probe"]["units"] == jc.n_layers
+
+    # smollm is full attention: its 500k decode cell is skipped
+    assert dryrun.main(["--arch", "smollm-360m", "--shape", "long_500k",
+                        "--multi-pod", "single", "--out", str(tmp_path)]) == 0
+    skipped = json.loads((tmp_path / "smollm_360m__long_500k__single.json")
+                         .read_text())
+    assert skipped["status"] == "skipped"
+    assert skipped["reason"] == JSP.cell_is_supported(jc, "long_500k")[1]
+    # resumable: the written cells are kept without --force
+    stamp = (tmp_path / "smollm_360m__train_4k__single.json").stat().st_mtime_ns
+    assert dryrun.main(argv) == 0
+    assert (tmp_path / "smollm_360m__train_4k__single.json").stat() \
+        .st_mtime_ns == stamp

@@ -72,7 +72,27 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.optimizer.schedules",
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
             "repro_torch.data.pipeline", "repro_torch.data.tokenizer",
-            "repro_torch.launch.train"} <= names
+            "repro_torch.launch.train", "repro_torch.distributed",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun"} <= names
+
+
+@pytest.mark.parametrize("pkg", ["core", "data", "utils", "distributed"])
+def test_packages_re_export_the_reference_names(pkg):
+    """Each of the reference's ``core``, ``data``, ``utils`` and
+    ``distributed`` packages re-exports names from its modules; the
+    port's package of the same name exports every one of them (read
+    from the reference's source, nothing of it imported)."""
+    import importlib
+    src = ROOT / "src" / "repro" / pkg / "__init__.py"
+    want = {a.asname or a.name for node in ast.walk(ast.parse(src.read_text()))
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert len(want) >= 5
+    mod = importlib.import_module(f"repro_torch.{pkg}")
+    assert not [n for n in sorted(want) if not hasattr(mod, n)]
 
 
 def _imported_roots(path: pathlib.Path):

@@ -96,16 +96,23 @@ def test_placement_split_failover_and_extend():
 
 
 def test_from_mesh_takes_the_host_count():
-    """The port's ``from_mesh`` takes the data host count (the JAX one
-    reads it off a device mesh) and lays shards out as ``blocked``."""
+    """The port's ``from_mesh`` takes the data host count from a mesh,
+    the product of its residency axes (pod x data), as the JAX one
+    does, and lays shards out as ``blocked``; a bare count is refused."""
     from repro.runtime.placement import PlacementMap as J
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch.mesh import make_placement_mesh
     from repro_torch.runtime.placement import PlacementMap as T
     for hosts, shards in ((4, 10), (6, 12), (1, 3)):
-        got, want = T.from_mesh(hosts, shards), J.blocked(shards, hosts)
+        got = T.from_mesh(make_placement_mesh(hosts), shards)
+        want = J.blocked(shards, hosts)
         assert plain((got.primary, got.replicas, got.n_hosts)) == \
             plain((want.primary, want.replicas, want.n_hosts))
+    pod = T.from_mesh(AbstractMesh((2, 3, 4), ("pod", "data", "model")), 12)
+    assert plain((pod.primary, pod.n_hosts)) == \
+        plain((J.blocked(12, 6).primary, 6))
     with pytest.raises(TypeError):
-        T.from_mesh(object(), 4)
+        T.from_mesh(4, 4)
 
 
 # ----------------------------------------------------------------------
