@@ -226,14 +226,16 @@ Phases, each of which raises (exit code not 0) on any failure:
                 (lr 5e-3) and mamba2-780m (lr 1e-3, the reference's for
                 SSM).  (d) fp32 policy, b=1, s=16, the same stacked
                 parameters: the loss within rtol 1e-4 and every
-                gradient leaf within ``TRAIN_CPU_TOL`` (3e-3; mamba2 3e-2,
-                fixed from the readings in PERF.md: twice the CPU's own
-                gradient move under one ulp of the parameters, printed
-                beside each reading) of its max |CPU gradient|.  (e) Every
-                architecture at smoke width, fp32 policy, two steps (the
-                first has lr 0) on the card against the CPU: loss and
-                grad_norm within rtol 1e-4 (Whisper 3e-3, Maverick 1e-3,
-                the VLM 4e-4, fixed the same way), the parameters
+                gradient leaf within twice the run's own largest move of
+                the CPU's gradients under one ulp of the parameters
+                (printed beside each reading), at most ``TRAIN_CPU_TOL``
+                (3e-3; mamba2 3e-2, fixed from the readings in PERF.md),
+                of its max |CPU gradient|.  (e) Every architecture at
+                smoke width, fp32 policy, two steps (the first has lr 0)
+                on the card against the CPU: loss and grad_norm within
+                twice the CPU's largest move under 8 one-ulp draws, at
+                most rtol 1e-4 (Whisper 3e-3, Maverick 1e-3, the VLM
+                4e-4, fixed the same way), the parameters
                 within 2 lr at worst and 1e-3 lr at the median (q8
                 moments for smollm, bf16 for maverick).  (f)
                 Step walls (CUDA events; median, p90), tokens/s, a
@@ -259,14 +261,38 @@ Phases, each of which raises (exit code not 0) on any failure:
                 ``quantize_roundtrip`` of the same tree; (e) a note that
                 one card cannot time a multi-GPU step (none is
                 modelled); (f) the process group destroyed.
+ 21. MoE      — the MoE family through the sharded step on one card, on
+                its own one-rank NCCL group: (a) llama4-scout at full
+                width (d 5120, 16 experts, top-1, vocab 202048) cut to 1
+                layer, batch 8 x 256 (one dispatch group of 2048 tokens,
+                capacity 160): ``make_sharded_grads`` (the sharded
+                step's loss and gradients, before AdamW, through the
+                expert-parallel MoE block with every collective the
+                identity) equal to the unsharded ``_value_and_grad`` bit
+                for bit, no collective launched, walls and peak memory (the AdamW state of 4.1e9
+                parameters does not fit 80 GB); (b) at that width with no
+                process group, what each rank would compute: the places
+                and kept flags of 4 contiguous token ranges, each routed
+                on its own rows from the earlier ranges' counts, equal to
+                a plain whole-batch cumsum's at capacity factors 1.25 and
+                0.5 (drops
+                printed by range, some required after the first), and the
+                block's output as the sum of the partials of 4 and of 16
+                expert ranges against ``moe_apply`` (bit for bit, or
+                within one bf16 ulp of each entry with the difference
+                printed); (c) Scout and Maverick at smoke width (moments
+                as phase 19's (e)), micro-batches 1 and 2: the whole
+                sharded step bit for bit with the unsharded one, no
+                collective; (d) the EmApprox kernel counts read 0.
 
 Each of the main paths (serving, megascan, top-k, their sym
 counterparts, training, k-means, the offline build, ingest, the stack
 and recommendation) is driven with the launch counters set to 0 just
 before it and read just after; each of its kernels must have launched,
 and launches made only to hold one route against another are left out.
-The LM serving path (phase 18) has no kernel: its counts must read 0;
-the LM training paths (phases 19 and 20) launch rows 1 and 11.
+The LM serving path (phase 18) and the MoE path (phase 21) have no
+kernel: their counts must read 0; the LM training paths (phases 19 and
+20) launch rows 1 and 11.
 Row 5 runs on four paths (the sym batch, the shard-granular planning,
 the sym top-k, recommendation): its record's ``launches`` is the sym
 batch's count and ``launches_by_path`` has each path's own; so do rows
@@ -2796,7 +2822,7 @@ def decode_profile(params, cfg, prompt: int, dev: torch.device,
 
 def require_finite(x: torch.Tensor, what: str) -> None:
     if not bool(torch.isfinite(x).all()):
-        raise AssertionError(f"{what}: logits not all finite")
+        raise AssertionError(f"{what}: not all finite")
 
 
 def lm_full_width(dev: torch.device, arch: str, prompt: int, seed: int) -> None:
@@ -2862,7 +2888,7 @@ def lm_full_width(dev: torch.device, arch: str, prompt: int, seed: int) -> None:
         lp, state = M.prefill(params, toks[:, :prompt], c, state)
         ld, state = M.decode_step(params, toks[:, prompt:], c, state)
         for x, what in ((full, "forward"), (lp, "prefill"), (ld, "decode")):
-            require_finite(x, f"{arch} {c.dtypes.compute} {what}")
+            require_finite(x, f"{arch} {c.dtypes.compute} {what} logits")
         return lm_err(lp, full[:, prompt - 1]), lm_err(ld, full[:, prompt])
 
     e_pre, e_dec = decode_gap(cfg32)
@@ -2929,7 +2955,7 @@ def lm_smoke_archs(dev: torch.device, seed: int) -> None:
         card, cpu = run(params, dev), run(host, torch.device("cpu"))
         errs = []
         for c, h, what in zip(card, cpu, ("forward", "decode")):
-            require_finite(c, f"{arch} {what}")
+            require_finite(c, f"{arch} {what} logits")
             errs.append(lm_err(c, h))
             if errs[-1] >= LM_SMOKE_TOL:
                 raise AssertionError(f"{arch} smoke {what}: card vs CPU "
@@ -2971,13 +2997,15 @@ TRAIN_CPU_TOKENS = 16       # (d): b=1, s=16
 # First fixed at 1e-3 (mamba2 5e-3), which smollm's wk gradient missed
 # (2.1e-3); fixed from the readings in PERF.md at twice the largest move
 # of the CPU's own gradients under a one-ulp change of the parameters
-# (1.57e-3 smollm, 1.5e-2 mamba2), which (d) prints with each run
+# (1.57e-3 smollm, 1.5e-2 mamba2).  Each run is gated on twice its own
+# largest move (``run_bound``), capped at these constants
 TRAIN_CPU_TOL = {"smollm-360m": 3e-3, "mamba2-780m": 3e-2}
 TRAIN_LOSS_RTOL = 1e-4      # (d) the loss, card against CPU
 # (e) loss and grad_norm, card against CPU: 1e-4, and for three archs
 # twice the CPU's largest move over ULP_DRAWS one-ulp draws as read in
 # PERF.md (Whisper 1.47e-3; Maverick 4.6e-4, router near-ties flipping
-# under some draws; the VLM 1.77e-4), which (e) prints with each run
+# under some draws; the VLM 1.77e-4).  Each run is gated on twice its
+# own largest move (``run_bound``), capped at these constants
 TRAIN_SMOKE_TOL = 1e-4
 SMOKE_TOL = {"whisper_small": 3e-3, "llama4_maverick_400b_a17b": 1e-3,
              "llama_3_2_vision_11b": 4e-4}
@@ -3208,6 +3236,13 @@ def remat_walls(cfg, opt_cfg, params, opt_state, batch, dev,
         + "; ".join(out))
 
 
+def run_bound(move: float, cap: float) -> float:
+    """A card-vs-CPU bound read from this run: twice the CPU's own move
+    under one ulp of the parameters, never above ``cap`` (the constant
+    first fixed from one call's readings)."""
+    return min(2 * move, cap)
+
+
 def one_ulp(tree, seed: int):
     """The tree with every float32 entry moved one ulp up or down (a
     random direction each)."""
@@ -3224,9 +3259,9 @@ def one_ulp(tree, seed: int):
 def grads_vs_cpu(dev: torch.device, seed: int) -> None:
     """(d): the loss and every gradient leaf at full width, fp32 policy,
     b=1, s=16, on the card against the CPU on the same stacked
-    parameters, each leaf within ``TRAIN_CPU_TOL``; beside each reading
-    the CPU gradient's own move under a one-ulp change of the
-    parameters."""
+    parameters, each leaf within twice the largest move of the CPU's
+    own gradients under a one-ulp change of the parameters, at most
+    ``TRAIN_CPU_TOL``; each reading beside its move."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import _value_and_grad
     from repro_torch.models import model as M
@@ -3246,10 +3281,10 @@ def grads_vs_cpu(dev: torch.device, seed: int) -> None:
         loss_d, g_d = _value_and_grad(
             params, {k: v.to(dev) for k, v in batch.items()}, cfg)
         names = ["/".join(p) for p, _ in tree_paths(params)]
-        tol = TRAIN_CPU_TOL[arch]
         rows = sorted(((lm_err(d, c), lm_err(u, c), n) for d, c, u, n in
                        zip(tree_leaves(g_d), tree_leaves(g_c),
                            tree_leaves(g_u), names)), reverse=True)
+        tol = run_bound(max(r[1] for r in rows), TRAIN_CPU_TOL[arch])
         lerr = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
         if not np.isfinite(float(loss_d)) or lerr >= TRAIN_LOSS_RTOL \
                 or rows[0][0] >= tol:
@@ -3261,7 +3296,8 @@ def grads_vs_cpu(dev: torch.device, seed: int) -> None:
             f"{TRAIN_LOSS_RTOL}); per-leaf max |dg| / max |g| worst: "
             + ", ".join(f"{n} {e:.3g} (the CPU's one-ulp move {u:.3g})"
                         for e, u, n in rows[:3])
-            + f"; bound {tol}; largest move "
+            + f"; bound {tol:.3g} (twice the largest move, at most "
+            f"{TRAIN_CPU_TOL[arch]}); largest move "
             f"{max(r[1] for r in rows):.3g}; median leaf error "
             f"{float(np.median([r[0] for r in rows])):.3g}")
         del params, host, g_c, g_d, g_u
@@ -3271,9 +3307,9 @@ def grads_vs_cpu(dev: torch.device, seed: int) -> None:
 def smoke_train_steps(dev: torch.device, seed: int) -> None:
     """(e): every architecture at smoke width, fp32 policy, two
     make_train_step steps (the first has lr 0) on the card against the
-    same parameters on the CPU: loss and grad_norm within SMOKE_TOL
-    (TRAIN_SMOKE_TOL for the rest); beside each reading the CPU's own
-    largest move under ULP_DRAWS one-ulp changes of the parameters."""
+    same parameters on the CPU: loss and grad_norm within twice the
+    CPU's own largest move under ULP_DRAWS one-ulp changes of the
+    parameters, at most SMOKE_TOL (TRAIN_SMOKE_TOL for the rest)."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
@@ -3309,7 +3345,7 @@ def smoke_train_steps(dev: torch.device, seed: int) -> None:
                    for i in range(ULP_DRAWS))
         p_card, m_card = run(host, dev)
         err = float(np.max(np.abs(m_card - m_cpu) / np.abs(m_cpu)))
-        tol = SMOKE_TOL.get(arch, TRAIN_SMOKE_TOL)
+        tol = run_bound(move, SMOKE_TOL.get(arch, TRAIN_SMOKE_TOL))
         if not np.all(np.isfinite(m_card)) or err >= tol:
             raise AssertionError(f"{arch} smoke steps: loss / grad_norm card "
                                  f"{m_card} vs CPU {m_cpu} ({err:.3g} >= "
@@ -3322,8 +3358,10 @@ def smoke_train_steps(dev: torch.device, seed: int) -> None:
             raise AssertionError(f"{arch} smoke step: parameters apart "
                                  f"{pmax:.3g} (median {pmed:.3g})")
         log(f"   (e) {arch} ({opt_cfg.state_dtype} moments): loss and "
-            f"grad_norm card vs CPU {err:.3g} (bound {tol:.3g}; the CPU's "
-            f"largest one-ulp move {move:.3g}); parameters after the lr "
+            f"grad_norm card vs CPU {err:.3g} (bound {tol:.3g}: twice the "
+            f"CPU's largest one-ulp move {move:.3g}, at most "
+            f"{SMOKE_TOL.get(arch, TRAIN_SMOKE_TOL):.3g}); parameters "
+            f"after the lr "
             f"{lr} step "
             f"max |diff| {pmax:.3g}, largest leaf median {pmed:.3g}")
 
@@ -3530,6 +3568,291 @@ def dist_phase(dev: torch.device, kernels: list) -> None:
     log(f"   (f) process group destroyed; phase 20 wall "
         f"{time.perf_counter() - t_phase:.1f} s")
 
+# ----------------------------------------------------------------------
+# phase 21: the MoE family through the sharded step
+# ----------------------------------------------------------------------
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_BATCH, MOE_SEQ = 8, 256  # one dispatch group of 2048 tokens
+MOE_RANGES = 4               # (b): contiguous token ranges, one a batch rank
+MOE_FACTORS = (1.25, 0.5)    # (b): capacity factors (160 and 64 places)
+MOE_SPLITS = (4, 16)         # (b): expert ranges, one a model rank
+# (b) where the partials' sum is not the whole block's bits (cuBLAS may
+# pick another algorithm for another expert count): the FFN's float32
+# sums in another order may round to a neighbouring bfloat16 value, so
+# each entry is held to one bfloat16 ulp of its magnitude, 2^-7 of it
+MOE_PARTIAL_RTOL = 2.0 ** -7
+MOE_SMOKE = ("llama4_scout_17b_a16e", "llama4_maverick_400b_a17b")
+
+
+def cut_depth_params(cfg, full_layers: int, seed: int, dev: torch.device):
+    """The stacked parameters of ``cfg`` (its depth cut from
+    ``full_layers``), each layer drawn at the full model's scale: the
+    reference's initializer divides a stacked leaf's draw by the root
+    of its layer count, so one layer alone would draw every weight at
+    std 1 (at which the bf16 forward's silu overflows and the
+    gradients turn NaN)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import materialize
+
+    def rescale(tree):
+        if isinstance(tree, dict):
+            return {k: rescale(v) for k, v in tree.items()}
+        return dataclasses.replace(
+            tree, scale=tree.scale * math.sqrt(cfg.n_layers / full_layers))
+    defs = M.param_defs(cfg)
+    defs = dict(defs, layers=rescale(defs["layers"]))
+    return materialize(defs, torch.Generator(device=dev).manual_seed(seed),
+                       cfg.dtypes.params_dtype, dev)
+
+
+def moe_full_grads(dev: torch.device, mesh, seed: int) -> dict:
+    """(a): Scout at full width, one layer, the sharded step's loss and
+    gradients (``make_sharded_grads``, whose MoE block runs
+    expert-parallel: its peers' counts, the region's collectives and the
+    aux statistics' all-reduce are over no live axis) on the one-rank
+    mesh against the unsharded ``_value_and_grad``, bit for bit and
+    finite, no collective; returns the layer's MoE parameters in the
+    compute dtype and the config."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as Mo
+    from repro_torch.models.layers import tree_paths
+    from repro_torch.utils.trees import tree_leaves
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=1)
+    params = cut_depth_params(cfg, full.n_layers, seed, dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    batch = fixed_batch(cfg, MOE_BATCH, MOE_SEQ, 9, dev)
+    batch["mask"][1, MOE_SEQ // 2:] = 0.0
+    # a first call on one short row takes the set-up out of the walls
+    ST._value_and_grad(params, fixed_batch(cfg, 1, 16, 9, dev), cfg)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    loss_u, g_u = ST._value_and_grad(params, batch, cfg)
+    torch.cuda.synchronize(dev)
+    wall_u = time.perf_counter() - t
+    peak_u = torch.cuda.max_memory_allocated(dev)
+    want = tree_leaves(g_u)
+    for (path, _), g in zip(tree_paths(params), want):
+        require_finite(g, f"(a) the gradient of {'/'.join(path)}")
+    placed = place_tree(params, ST.params_shardings(cfg, mesh))
+    del params, g_u
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads = ST.make_sharded_grads(cfg, mesh)
+    shards = []
+    moe_apply = Mo.moe_apply
+
+    def seen(p, x, c, shard=None):
+        shards.append(shard)
+        return moe_apply(p, x, c, shard)
+    Mo.moe_apply = seen
+    try:
+        t = time.perf_counter()
+        loss_s, g_s = grads(placed, batch)
+        torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t
+    finally:
+        Mo.moe_apply = moe_apply
+    if not shards or any(sh is None for sh in shards):
+        raise AssertionError("(a) the sharded step did not run the "
+                             "expert-parallel MoE block")
+    peak_s = torch.cuda.max_memory_allocated(dev)
+    if not (torch.equal(loss_s, loss_u) and len(g_s) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(g_s, want))):
+        raise AssertionError("(a) the sharded loss and gradients are not "
+                             "the unsharded ones bit for bit")
+    if grads.collectives.kinds:
+        raise AssertionError(f"(a) a one-rank mesh launched "
+                             f"{grads.collectives.kinds}")
+    require_finite(loss_s, "(a) loss")
+    log(f"   (a) {MOE_ARCH} at full width, 1 layer ({n_params} parameters, "
+        f"{cfg.n_experts} experts, top-{cfg.top_k}), {MOE_BATCH} x "
+        f"{MOE_SEQ}: the sharded loss ({float(loss_s):.6f}) and all "
+        f"{len(want)} gradient leaves, through the expert-parallel block "
+        f"(experts {shards[0].experts or '()'}, batch axes "
+        f"{shards[0].batch or '()'}), equal the unsharded ones bit for "
+        f"bit, no collective launched; unsharded {wall_u:.3f} s, peak "
+        f"{peak_u} bytes; sharded {wall_s:.3f} s, peak {peak_s} bytes "
+        f"(the unsharded gradients held)")
+    moe = {k: v.to_local()[0].to(cfg.dtypes.compute_dtype)
+           for k, v in placed["layers"]["moe"].items()}
+    del placed, g_s, want
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "moe": moe}
+
+
+def whole_batch_places(probs: torch.Tensor, k: int, n_groups: int):
+    """The plain routing of a whole micro-batch whose [n, E] router
+    probabilities fill ``n_groups`` groups exactly: (expert ids, places)
+    [n, k], a place being the cumsum over the group's (token, k)
+    choices of its expert's one-hot, as the reference counts it."""
+    n, e = probs.shape
+    _, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    idx = idx[:, :k]
+    onehot = torch.nn.functional.one_hot(idx, e)
+    flat = onehot.reshape(n_groups, n // n_groups * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(n, k, e)
+    return idx, (pos * onehot).sum(-1)
+
+
+def moe_ranks(dev: torch.device, cfg, moe: dict) -> None:
+    """(b): what each rank would compute, at (a)'s width, with no
+    process group: the places and kept flags of ``MOE_RANGES`` token
+    ranges (each routed on its own rows, from the earlier ranges'
+    counts) against a plain whole-batch cumsum's, at each of
+    ``MOE_FACTORS``; the block's output as the sum of the expert-range
+    partials of each of ``MOE_SPLITS`` against ``moe_apply``."""
+    from repro_torch.models import moe as Mo
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    n_tok = MOE_BATCH * MOE_SEQ
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=g,
+                    device=dev).to(cfg.dtypes.compute_dtype)
+    tokens = x.reshape(n_tok, cfg.d_model)
+    e, k = cfg.n_experts, cfg.top_k
+    g_size = Mo.group_size(n_tok)
+    n_groups = -(-n_tok // g_size)
+    probs = Mo.router_probs(tokens, moe["router"])
+    size = n_tok // MOE_RANGES
+    for cf in MOE_FACTORS:
+        c_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        cap = Mo.expert_capacity(c_cfg, g_size)
+        w_idx, w_pos = whole_batch_places(probs, k, n_groups)
+        w_keep = w_pos < cap
+        before = torch.zeros((n_groups, e), dtype=torch.long, device=dev)
+        drops = []
+        for r in range(MOE_RANGES):
+            a, b = r * size, (r + 1) * size
+            _, idx = Mo.top_k(Mo.router_probs(tokens[a:b], moe["router"]), k)
+            grp = Mo.group_ids(a, size, n_tok, dev)
+            places = Mo.slice_places(idx, grp, before)
+            before = before + Mo.slice_counts(idx, grp, n_groups, e)
+            if not (torch.equal(idx, w_idx[a:b])
+                    and torch.equal(places, w_pos[a:b])
+                    and torch.equal(places < cap, w_keep[a:b])):
+                raise AssertionError(f"(b) factor {cf}, range {r}: expert "
+                                     f"ids, places or kept flags differ "
+                                     f"from the whole batch's")
+            drops.append(int((places >= cap).sum()))
+        if cf < 1 and not any(drops[1:]):
+            raise AssertionError(f"(b) factor {cf}: no drop on a range "
+                                 f"after the first ({drops})")
+        log(f"   (b) factor {cf} (capacity {cap}): {MOE_RANGES} ranges of "
+            f"{size} tokens, each routed on its rows from its peers' "
+            f"counts: expert ids, places and kept flags equal a plain "
+            f"whole-batch cumsum's; drops by range {drops}")
+    whole = Mo.moe_apply(moe, x, cfg).reshape(n_tok, cfg.d_model)
+    gates, idx = Mo.top_k(probs, k)
+    grp = Mo.group_ids(0, n_tok, n_tok, dev)
+    places = Mo.slice_places(
+        idx, grp, torch.zeros((n_groups, e), dtype=torch.long, device=dev))
+    cap = Mo.expert_capacity(cfg, g_size)
+    for m in MOE_SPLITS:
+        e_loc = e // m
+        total = torch.zeros_like(whole)
+        for r in range(m):
+            w = {n: moe[n][r * e_loc:(r + 1) * e_loc]
+                 for n in ("w_gate", "w_up", "w_down")}
+            total = total + Mo.expert_range_output(
+                w, tokens, gates, idx, places, grp,
+                Mo.slice_groups(0, n_tok, n_tok), cap, r * e_loc)
+        require_finite(total, f"(b) the partials of {m} ranges")
+        if torch.equal(total, whole):
+            log(f"   (b) the block's output as the sum of {m} expert "
+                f"ranges' partials ({e_loc} experts each): equal to "
+                f"moe_apply's bit for bit")
+            continue
+        diff = (total.float() - whole.float()).abs()
+        worst = float((diff / whole.float().abs().clamp(min=1e-30)).max())
+        if bool((diff > MOE_PARTIAL_RTOL * whole.float().abs()).any()):
+            raise AssertionError(f"(b) {m} ranges: partials' sum apart "
+                                 f"from moe_apply by {worst:.3g} of an "
+                                 f"entry (bound {MOE_PARTIAL_RTOL:.3g})")
+        log(f"   (b) the block's output as the sum of {m} expert ranges' "
+            f"partials: not bit for bit; max |diff| {float(diff.max()):.3g}, "
+            f"at most {worst:.3g} of its entry (bound "
+            f"{MOE_PARTIAL_RTOL:.3g}); {int((diff > 0).sum())} of "
+            f"{diff.numel()} entries differ")
+
+
+def moe_smoke_steps(dev: torch.device, mesh, seed: int) -> None:
+    """(c): the whole sharded step at smoke width on the one-rank mesh,
+    Scout and Maverick (moments as ``SMOKE_STATE``), micro-batches 1
+    and 2: parameters, moments and loss equal the unsharded step's bit
+    for bit, no collective launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import full_tree, place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.optimizer.adamw import AdamWConfig, adamw_init
+
+    for arch in MOE_SMOKE:
+        cfg = get_config(arch, smoke=True)
+        opt_cfg = AdamWConfig(state_dtype=SMOKE_STATE.get(arch, "float32"))
+        params = M.init_stacked_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        opt = adamw_init(params, opt_cfg)
+        batch = fixed_batch(cfg, 8, 16, seed + 3, dev)
+        batch["mask"][1, 8:] = 0.0
+        for mb in (1, 2):
+            kw = dict(microbatches=mb, warmup_steps=0, total_steps=10)
+            plain = ST.make_train_step(cfg, opt_cfg, **kw)
+            sharded = ST.make_train_step(cfg, opt_cfg, mesh=mesh, **kw)
+            p1, o1, m1 = plain(params, opt, batch)
+            p2, o2, m2 = sharded(
+                place_tree(params, ST.params_shardings(cfg, mesh)),
+                place_tree(opt, ST.opt_state_shardings(cfg, mesh)), batch)
+            trees_equal(full_tree((p2, o2)), (p1, o1),
+                        f"(c) {arch}, micro-batches {mb}: parameters and "
+                        f"moments")
+            if not torch.equal(m1["loss"], m2["loss"]):
+                raise AssertionError(f"(c) {arch}, micro-batches {mb}: "
+                                     f"loss {float(m2['loss'])} != "
+                                     f"{float(m1['loss'])}")
+            if sharded.collectives.kinds:
+                raise AssertionError(f"(c) a one-rank mesh launched "
+                                     f"{sharded.collectives.kinds}")
+            log(f"   (c) {arch} smoke ({opt_cfg.state_dtype} moments), "
+                f"micro-batches {mb}: the sharded step equal bit for bit "
+                f"to the unsharded one (loss {float(m1['loss']):.6f}, every "
+                f"parameter and moment), no collective launched")
+
+
+def moe_phase(dev: torch.device, args, kernels: list) -> None:
+    """Phase 21: the MoE family through the sharded step on one card
+    (module docstring).  It launches no kernel of the record: the
+    counts are zeroed before it and must read 0 after (recorded as path
+    ``moe_mesh``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    names = list(KERNEL_MODULES)
+    zero_counts(names)
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before phase 21")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+        full = moe_full_grads(dev, mesh, args.seed)
+        moe_ranks(dev, full["cfg"], full["moe"])
+        del full
+        torch.cuda.empty_cache()
+        moe_smoke_steps(dev, mesh, args.seed)
+    finally:
+        dist.destroy_process_group()
+    counts = read_counts(names)
+    launched = {n: c for n, c in counts.items() if c}
+    if launched:
+        raise AssertionError(f"the MoE path launched kernels: {launched}")
+    add_path(kernels, "moe_mesh", counts)
+    log(f"   (d) EmApprox kernel launches on the path: {counts}; phase 21 "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+
 
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3615,6 +3938,10 @@ def main(argv=None) -> int:
         f"{TRAIN_ARCH} through it, the sharded step against the unsharded "
         f"step, the compressed all-reduce")
     dist_phase(dev, kernels)
+    log(f"== MoE through the sharded step on {card}: {MOE_ARCH} at full "
+        f"width (1 layer) on a one-rank NCCL mesh, each rank's routing and "
+        f"expert ranges, Scout and Maverick smoke steps")
+    moe_phase(dev, args, kernels)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,13 @@ each rank the gradient of its own shard:
   * over an axis that does not (``model``: its ranks computed on the
     same rows), the rank keeps its slice, with no sum.
 
+The MoE block's expert parallelism (``models/moe.py``) runs on three
+more: ``region_in`` (identity forward, all-reduce backward) on each
+replicated tensor that enters the expert region, ``region_out``
+(all-reduce forward, identity backward) on the region's output, and
+``stat_all_reduce`` (all-reduce both ways) on the load-balancing
+statistics; ``all_gather_axes`` stacks the per-rank routing counts.
+
 An axis of size 1 launches nothing.
 """
 from __future__ import annotations
@@ -69,14 +76,24 @@ class MeshAxes:
             r = r * self.size[a] + self.coord[a]
         return r
 
-    def all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, dim: int, axis: str,
+                   kind: str = "all-gather") -> torch.Tensor:
         """The shards of ``axis``'s ranks concatenated along ``dim``."""
         n = self.size[axis]
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         _all_gather(out, src, group=self.groups[axis])
-        self.log.add("all-gather", out)
+        self.log.add(kind, out)
         return out.movedim(0, dim)
+
+    def all_gather_axes(self, x: torch.Tensor, axes: Iterable[str],
+                        kind: str = "all-gather") -> torch.Tensor:
+        """``[n, *x.shape]``: every rank's ``x`` over ``axes``, stacked
+        in ``linear_rank(axes)`` order (the minor axis gathered first)."""
+        out = x[None]
+        for a in reversed(self.live(axes)):
+            out = self.all_gather(out, 0, a, kind)
+        return out
 
     def reduce_scatter(self, x: torch.Tensor, dim: int,
                        axis: str) -> torch.Tensor:
@@ -93,7 +110,8 @@ class MeshAxes:
         n = x.shape[dim] // self.size[axis]
         return x.narrow(dim, self.coord[axis] * n, n)
 
-    def all_reduce(self, x: torch.Tensor, axes: Iterable[str]) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axes: Iterable[str],
+                   kind: str = "all-reduce") -> torch.Tensor:
         """``x`` summed over each of ``axes`` larger than 1 (in place
         where ``x`` is contiguous; a collective writes no strided
         view, so another tensor comes back for one)."""
@@ -102,8 +120,14 @@ class MeshAxes:
             x = x.contiguous()
         for a in live:
             dist.all_reduce(x, group=self.groups[a])
-            self.log.add("all-reduce", x)
+            self.log.add(kind, x)
         return x
+
+    def summed(self, x: torch.Tensor, axes: Tuple[str, ...],
+               kind: str) -> torch.Tensor:
+        """A new tensor: ``x`` summed over ``axes`` (``x`` untouched)."""
+        return self.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               axes, kind)
 
 
 class _GatherShards(torch.autograd.Function):
@@ -120,6 +144,61 @@ class _GatherShards(torch.autograd.Function):
             g = (ctx.axes.reduce_scatter(g, dim, axis) if batch
                  else ctx.axes.chunk(g, dim, axis))
         return g, None, None
+
+
+class _RegionIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes: MeshAxes, names):
+        ctx.axes, ctx.names = axes, names
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axes.summed(g, ctx.names, "region-in"), None, None
+
+
+class _RegionOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes: MeshAxes, names):
+        return axes.summed(x, names, "region-out")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _StatAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes: MeshAxes, names):
+        ctx.axes, ctx.names = axes, names
+        return axes.summed(x, names, "stat-all-reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axes.summed(g, ctx.names, "stat-all-reduce"), None, None
+
+
+def region_in(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``names``: a tensor
+    every rank of ``names`` holds whole, entering a region where each
+    computes only its part (its experts)."""
+    names = axes.live(names)
+    return _RegionIn.apply(x, axes, names) if names else x
+
+
+def region_out(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
+    """The region's partial ``x`` summed over ``names``; the gradient
+    passes unchanged (every rank of ``names`` holds it whole)."""
+    names = axes.live(names)
+    return _RegionOut.apply(x, axes, names) if names else x
+
+
+def stat_all_reduce(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
+    """``x`` summed over ``names``, and its gradient too: statistics of
+    the ranks' rows whose consumers on every rank each reach every
+    rank's addend."""
+    names = axes.live(names)
+    return _StatAllReduce.apply(x, axes, names) if names else x
 
 
 def gather_shards(x: torch.Tensor, axes: MeshAxes, plan) -> torch.Tensor:

@@ -23,17 +23,26 @@ plain tensors, with the collectives run explicitly
   * a leaf's gradient is all-reduced over the batch axes it is not
     split on;
   * each rank's loss and gradients are weighted by its share of the
-    mask count (all-reduced first), so the loss is the reference's
-    global mean whatever the masks;
+    mask count (all-reduced first; where the micro-batch has none,
+    every rank weighs alike), so the weights sum to 1 and the loss is
+    the reference's global mean plus its MoE aux loss whatever the
+    masks;
   * the clipping norm sums each leaf's squares over the axes it is
     split on, then over the leaves;
-  * AdamW runs on the local shards (its math is elementwise).
+  * AdamW runs on the local shards (its math is elementwise);
+  * the MoE family runs expert-parallel: the expert leaves (logical
+    axis "experts") are not gathered over the axes their expert dim is
+    split on (``model``), and the MoE block (``models/moe.py``, passed
+    a ``MoEShard``) routes this rank's rows over all experts with the
+    global micro-batch's groups and capacity, computes its own experts
+    and sums their outputs over ``model``; the load-balancing
+    statistics are summed over the batch axes.
 
-Axes of size 1 launch nothing and weigh nothing, so on a mesh of one
-device the step is the unsharded step op for op.  Not supported: q8
-moments under a sharded mesh (their quantisation blocks are the whole
-leaf's) and the MoE family with the batch split (its load-balancing
-loss and dispatch capacity are over the whole batch).
+``make_sharded_grads`` is the step's part before AdamW (loss and
+local gradients).  Axes of size 1 launch nothing and weigh nothing, so
+on a mesh of one device the step is the unsharded step op for op.  Not
+supported: q8 moments under a sharded mesh (their quantisation blocks
+are the whole leaf's).
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoEShard
 from repro_torch.optimizer.adamw import (
     AdamWConfig,
     OptState,
@@ -212,13 +222,13 @@ def abstract_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 # step functions
 # ----------------------------------------------------------------------
 def _value_and_grad(params, batch, cfg: ModelConfig, gather=None,
-                    scale: Optional[torch.Tensor] = None):
+                    scale: Optional[torch.Tensor] = None, moe_shard=None):
     """(loss, gradient tree of ``params``) of ``M.loss_fn`` (times
     ``scale`` where given); a leaf the loss does not reach gets a zero
     gradient, as JAX gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss = M.loss_fn(tree_unflatten(params, leaves), batch, cfg,
-                     gather=gather)
+                     gather=gather, moe_shard=moe_shard)
     if scale is not None:
         loss = loss * scale
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -254,7 +264,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     placed by ``params_shardings`` / ``opt_state_shardings`` (or of
     this rank's local shards), the batch is the global batch on every
     rank, and the step's ``collectives`` attribute counts what it
-    launched."""
+    launched.  The MoE family trains expert-parallel there (its expert
+    leaves stay split over ``model``); q8 moments under a mesh that
+    splits a leaf raise ``ValueError``."""
     acc_dt = accum_dtype or torch.float32
     if mesh is not None:
         return _sharded_train_step(cfg, opt_cfg, microbatches, total_steps,
@@ -296,25 +308,33 @@ class _Gather:
     """The sharded step's ``gather(section, tree)`` (``models/model.py``):
     a tree of the per-layer views' leaves, each gathered whole by the
     plan of its stacked leaf's spec with the stacked dims dropped
-    (they are never split: the "layers" rule is None)."""
+    (they are never split: the "layers" rule is None).  An expert leaf
+    (logical axis "experts") keeps its expert dim split: its plan
+    gathers the other dims only."""
 
-    def __init__(self, shardings: dict, axes: MeshAxes, batch: set):
-        def plans(tree, drop):
+    def __init__(self, shardings: dict, logical: dict, axes: MeshAxes,
+                 batch: set):
+        def plans(tree, names, drop):
             if isinstance(tree, dict):
-                return {k: plans(v, drop) for k, v in tree.items()}
+                return {k: plans(v, names[k], drop) for k, v in tree.items()}
             if any(e is not None for e in tree.spec[:drop]):
                 raise ValueError(f"a stacked axis is split: {tree.spec}")
-            return shard_plan(tree.spec[drop:], axes, batch)
+            kept = tuple(i for i, n in enumerate(names[drop:])
+                         if n == "experts")
+            return tuple(e for e in shard_plan(tree.spec[drop:], axes, batch)
+                         if e[0] not in kept)
 
         self.axes = axes
-        self.plans = {"top": {k: plans(v, 0) for k, v in shardings.items()
+        self.plans = {"top": {k: plans(v, logical[k], 0)
+                              for k, v in shardings.items()
                               if k not in _STACKED}}
         for name in ("layers", "encoder"):
             if name in shardings:
-                self.plans[name] = plans(shardings[name], 1)
+                self.plans[name] = plans(shardings[name], logical[name], 1)
         if "groups" in shardings:
-            self.plans["groups"] = {k: plans(v, 2 if k == "plain" else 1)
-                                    for k, v in shardings["groups"].items()}
+            self.plans["groups"] = {
+                k: plans(v, logical["groups"][k], 2 if k == "plain" else 1)
+                for k, v in shardings["groups"].items()}
 
     def __call__(self, section: str, tree):
         return self._walk(tree, self.plans[section])
@@ -326,6 +346,18 @@ class _Gather:
             return {k: self._walk(v, plans[k]) if k in plans else v
                     for k, v in tree.items()}
         return gather_shards(tree, self.axes, plans)
+
+
+def _expert_axes(cfg: ModelConfig, shardings, axes: MeshAxes
+                 ) -> Tuple[str, ...]:
+    """The live mesh axes the MoE leaves' expert dim is split over (as
+    legalized: none where they do not divide the expert count)."""
+    moe = (shardings["groups"]["moe"] if "groups" in shardings
+           else shardings["layers"])["moe"]
+    entry = moe["w_gate"].spec[1]
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    return axes.live(names)
 
 
 def _local(x):
@@ -373,32 +405,31 @@ def _global_norm(grads: list, split: list, axes: MeshAxes) -> torch.Tensor:
     return torch.sqrt(sum(sq))
 
 
-def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                        microbatches: int, total_steps: int,
-                        warmup_steps: int, acc_dt: torch.dtype, mesh):
+def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
+                       accum_dtype: Optional[torch.dtype] = None):
+    """The sharded step's loss and gradients (module docstring), the
+    part before AdamW: ``grads(params, batch) -> (loss, [local
+    gradient leaves])``, ``params`` a tree of DTensors or local shards
+    and ``batch`` the global batch.  Its ``collectives`` attribute
+    counts what it launched, ``split`` lists each leaf's split mesh
+    axes and ``axes`` is its ``MeshAxes``."""
+    acc_dt = accum_dtype or torch.float32
     shardings = params_shardings(cfg, mesh)
     sizes = mesh_shape(mesh)
     split = [split_axes(sh.spec) for sh in tree_leaves(shardings)]
-    if opt_cfg.state_dtype == "q8" and any(
-            sizes[a] > 1 for names in split for a in names):
-        raise ValueError(
-            "q8 moments under a mesh that splits a leaf: a local shard's "
-            "quantisation blocks are not the whole leaf's; use float32 "
-            "or bfloat16 moments")
-    if cfg.family == "moe" and any(sizes.get(a, 1) > 1
-                                   for a in ("pod", "data")):
-        raise ValueError(
-            "the MoE family on a mesh that splits the batch: its "
-            "load-balancing loss and dispatch capacity are over the whole "
-            "batch (expert parallelism is not ported)")
     log = CollectiveLog()
     axes = MeshAxes(mesh, log)
+    experts = _expert_axes(cfg, shardings, axes) \
+        if cfg.family == "moe" else ()
 
-    def train_step(params, opt_state, batch):
+    def grads(params, batch):
         b = batch["tokens"].shape[0]
         _check_split(b, microbatches)
         b_mb = b // microbatches
         batch_ax = axes.live(batch_axes(mesh, b_mb))
+        if set(batch_ax) & set(experts):
+            raise ValueError(f"the experts are split over a batch axis "
+                             f"{experts}")
         rows = b_mb // math.prod(sizes[a] for a in batch_ax)
         first = axes.linear_rank(batch_ax) * rows
         mbs = [{k: v[i * b_mb + first:i * b_mb + first + rows]
@@ -407,17 +438,23 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if batch_ax:
             counts = torch.stack([_mask_count(mb) for mb in mbs])
             total = axes.all_reduce(counts.clone(), batch_ax)
-            scales = list(torch.clamp(counts, min=1.0)
-                          / torch.clamp(total, min=1.0))
+            # a rank with no unmasked row weighs 0 (its cross-entropy is
+            # 0, but the MoE aux loss, global, is the same on every
+            # rank); a micro-batch with none weighs every rank alike
+            scales = list(torch.where(
+                total > 0, counts / torch.clamp(total, min=1.0),
+                1.0 / math.prod(sizes[a] for a in batch_ax)))
         p_loc = tree_map(_local, params)
-        o_loc = tree_map(_local, opt_state)
         # a mesh of one device gathers nothing: no walk of the views
-        gather = _Gather(shardings, axes, set(batch_ax)) if axes.groups \
-            else None
+        gather = _Gather(shardings, M.logical_axes(cfg), axes,
+                         set(batch_ax)) if axes.groups else None
+        moe_shard = MoEShard(axes, batch_ax, first, experts) \
+            if cfg.family == "moe" else None
 
         acc, losses = None, []
         for mb, scale in zip(mbs, scales):
-            loss_i, g = _value_and_grad(p_loc, mb, cfg, gather, scale)
+            loss_i, g = _value_and_grad(p_loc, mb, cfg, gather, scale,
+                                        moe_shard)
             g = tree_leaves(g)
             if microbatches > 1:
                 g = [x.to(acc_dt) for x in g]
@@ -427,23 +464,47 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             losses.append(loss_i)
         acc = [axes.all_reduce(x, [a for a in batch_ax if a not in names])
                for x, names in zip(acc, split)]
-        grads = [a / microbatches for a in acc] if microbatches > 1 else acc
+        out = [a / microbatches for a in acc] if microbatches > 1 else acc
         if batch_ax:
             lv = axes.all_reduce(torch.stack(losses), batch_ax)
             loss = lv.mean() if microbatches > 1 else lv[0]
         else:
             loss = torch.stack(losses).mean() if microbatches > 1 \
                 else losses[0]
+        return loss, out
 
+    grads.collectives = log
+    grads.split = split
+    grads.axes = axes
+    return grads
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                        microbatches: int, total_steps: int,
+                        warmup_steps: int, acc_dt: torch.dtype, mesh):
+    sizes = mesh_shape(mesh)
+    grads_fn = make_sharded_grads(cfg, mesh, microbatches, acc_dt)
+    split = grads_fn.split
+    if opt_cfg.state_dtype == "q8" and any(
+            sizes[a] > 1 for names in split for a in names):
+        raise ValueError(
+            "q8 moments under a mesh that splits a leaf: a local shard's "
+            "quantisation blocks are not the whole leaf's; use float32 "
+            "or bfloat16 moments")
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grads_fn(params, batch)
+        p_loc = tree_map(_local, params)
+        o_loc = tree_map(_local, opt_state)
         lr_scale = cosine_warmup_schedule(
             o_loc.step, warmup_steps=warmup_steps, total_steps=total_steps)
         new_p, new_o, metrics = adamw_update(
             p_loc, tree_unflatten(p_loc, grads), o_loc, opt_cfg, lr_scale,
-            gnorm=_global_norm(grads, split, axes))
+            gnorm=_global_norm(grads, split, grads_fn.axes))
         metrics["loss"] = loss
         return _like(new_p, params), _like(new_o, opt_state), metrics
 
-    train_step.collectives = log
+    train_step.collectives = grads_fn.collectives
     return train_step
 
 

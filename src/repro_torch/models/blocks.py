@@ -151,10 +151,13 @@ def apply_block(
     enc: Optional[torch.Tensor] = None,
     causal: bool = True,
     want_aux: bool = False,
+    moe_shard=None,
 ):
     """Returns (x_out, new_cache, new_ssm_state, aux_loss); aux_loss is
     the MoE router's load-balancing loss where ``want_aux`` (a training
-    loss reads it; serving does not), else the float 0.0 (no launch)."""
+    loss reads it; serving does not), else the float 0.0 (no launch).
+    ``moe_shard``: the sharded train step's ``moe.MoEShard`` (the MoE
+    block's expert parallelism), or None."""
     new_cache, new_state = None, None
     zero = 0.0
     dtype = x.dtype
@@ -206,9 +209,9 @@ def apply_block(
     h = _norm32(s32, p["norm2"], cfg, dtype)
     aux = zero
     if kind == "moe":
-        x = x + moe_mod.moe_apply(p["moe"], h, cfg)
+        x = x + moe_mod.moe_apply(p["moe"], h, cfg, moe_shard)
         if want_aux:
-            aux = moe_mod.moe_aux_loss(p["moe"], h, cfg)
+            aux = moe_mod.moe_aux_loss(p["moe"], h, cfg, moe_shard)
     else:
         x = x + swiglu(h, **p["mlp"])
     return x, new_cache, new_state, aux

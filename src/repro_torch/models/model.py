@@ -27,7 +27,10 @@ The sharded train step (``launch/steps.py``) passes ``gather``: the
 parameters are then this rank's shards, and ``gather(section, tree)``
 returns a tree's leaves whole.  The top-level leaves are gathered once
 a call, each layer's (group's) inside its body, so that a
-rematerialized body gathers again.
+rematerialized body gathers again.  For the MoE family it also passes
+``moe_shard`` (``moe.MoEShard``): the expert leaves then stay split
+over ``model`` and the MoE block computes this rank's rows of the
+global micro-batch on its experts.
 """
 from __future__ import annotations
 
@@ -290,12 +293,13 @@ def _forward_impl(
     want_aux: bool = False,
     remat: str = "none",
     gather=None,
+    moe_shard=None,
 ) -> Tuple[torch.Tensor, "torch.Tensor | float"]:
     """(logits, the MoE layers' summed load-balancing loss where
     ``want_aux``, else 0.0).  ``remat`` is the activation-checkpoint
     policy of each layer body (each group's, in the grouped models;
     ``_maybe_remat``): the training loss passes ``cfg.remat``.
-    ``gather``: see the module docstring."""
+    ``gather``, ``moe_shard``: see the module docstring."""
     compute = cfg.dtypes.compute_dtype
     cparams = tree_cast(params, compute)
     if gather is not None:
@@ -338,7 +342,8 @@ def _forward_impl(
             h = plain_layers(gp, h)
             h, _, _, aux = blocks.apply_block(gp["moe"], h, cfg, "moe",
                                               positions=positions,
-                                              want_aux=want_aux)
+                                              want_aux=want_aux,
+                                              moe_shard=moe_shard)
             return h, aux
         body = _maybe_remat(body, remat)
         for gp in cparams["groups"]:
@@ -350,7 +355,8 @@ def _forward_impl(
                 lp = gather("layers", lp)
             h, _, _, aux = blocks.apply_block(lp, h, cfg, kind,
                                               positions=positions, enc=enc,
-                                              want_aux=want_aux)
+                                              want_aux=want_aux,
+                                              moe_shard=moe_shard)
             return h, aux
         body = _maybe_remat(body, remat)
         for lp in cparams["layers"]:
@@ -375,19 +381,22 @@ def forward(
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            aux_coef: float = 0.01, gather=None) -> torch.Tensor:
+            aux_coef: float = 0.01, gather=None,
+            moe_shard=None) -> torch.Tensor:
     """Masked next-token cross-entropy in fp32 (+ the MoE load-balance
     aux loss) of the *stacked* parameter tree (``param_defs``' layout,
     the training state).  The tree is cast to the compute dtype and
     taken apart into per-layer views inside every call, so each call
     builds its own autograd graph and the gradients land on the stacked
     leaves.  Each layer (group) body runs under ``cfg.remat``.
-    ``gather``: the sharded step's (see the module docstring)."""
+    ``gather``, ``moe_shard``: the sharded step's (see the module
+    docstring)."""
     views = _unstack_params(tree_cast(params, cfg.dtypes.compute_dtype))
     logits, aux = _forward_impl(views, batch["tokens"], cfg,
                                 batch.get("enc_inputs"),
                                 want_aux=cfg.family == "moe",
-                                remat=cfg.remat, gather=gather)
+                                remat=cfg.remat, gather=gather,
+                                moe_shard=moe_shard)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     mask = batch.get("mask")

@@ -16,7 +16,13 @@ Jobs:
             on the (2, 2, 2) mesh (Whisper, the encoder-decoder, is
             left out: its smoke model moves 0.45 of a leaf's max under
             one ulp of its parameters, which no bound can hold; its
-            sharded step read 1.6e-4 from the single-process one);
+            sharded step read 1.6e-4 from the single-process one); the
+            MoE family expert-parallel: Scout on the (4, 2) mesh with
+            micro-batches 1 and 2 and once at capacity factor 0.5 (the
+            drops of each rank's MoE calls are saved) and once with
+            micro-batches 2 and ``MASKED_ROWS`` masked whole (in the
+            first micro-batch one data rank has no unmasked row, the
+            second has none at all), Maverick on the (2, 2, 2) mesh;
   compress  4 ranks: ``compressed_psum`` over a 4-rank axis on
             ``compress_inputs``, and ``shard_constraint`` on a DTensor
             of a (2, 2) mesh.
@@ -33,20 +39,35 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA_MODEL = ((4, 2), ("data", "model"))
 POD_DATA_MODEL = ((2, 2, 2), ("pod", "data", "model"))
-# (arch, mesh, micro-batches)
+SCOUT, MAVERICK = "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b"
+DROP_CF = 0.5               # the capacity factor of the case with drops
+MASKED_ROWS = (2, 4, 5, 6, 7)  # rows masked whole in one case
+# (arch, mesh, micro-batches[, capacity factor[, rows masked whole]])
 STEP_CASES = tuple(("smollm_360m", mesh, mb)
                    for mesh in (DATA_MODEL, POD_DATA_MODEL) for mb in (1, 2)) \
     + tuple((arch, POD_DATA_MODEL, 2) for arch in
-            ("llama_3_2_vision_11b", "mamba2_780m"))
+            ("llama_3_2_vision_11b", "mamba2_780m")) \
+    + ((SCOUT, DATA_MODEL, 1), (SCOUT, DATA_MODEL, 2),
+       (MAVERICK, POD_DATA_MODEL, 2), (SCOUT, DATA_MODEL, 1, DROP_CF),
+       (SCOUT, DATA_MODEL, 2, None, MASKED_ROWS))
 STEP_COUNT = 3
 STEP_LR = 1e-3
 
 
-def step_setup(arch: str):
+def case_id(case) -> str:
+    arch, (_, names), mb = case[:3]
+    cf = f"-cf{case[3]}" if len(case) > 3 and case[3] is not None else ""
+    masked = "-masked" if len(case) > 4 else ""
+    return f"{arch}-{'x'.join(names)}-mb{mb}{cf}{masked}"
+
+
+def step_setup(arch: str, capacity_factor=None, masked_rows=()):
     """(cfg, opt_cfg, params, batch) of the step job: ``arch`` at smoke
-    width under the fp32 policy, seeded parameters, a batch of 8 x 16
-    whose row r has its last r tokens masked (so the ranks' mask counts
-    differ), with seeded encoder inputs where the family takes them."""
+    width under the fp32 policy (at ``capacity_factor`` where given),
+    seeded parameters, a batch of 8 x 16 whose row r has its last r
+    tokens masked (so the ranks' mask counts differ) and the rows
+    ``masked_rows`` masked whole, with seeded encoder inputs where the
+    family takes them."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models.config import DTypePolicy
@@ -54,6 +75,8 @@ def step_setup(arch: str):
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtypes=DTypePolicy("float32", "float32",
                                                  "float32"))
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     params = M.init_stacked_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
     rng = np.random.default_rng(5)
@@ -62,6 +85,7 @@ def step_setup(arch: str):
     mask = torch.ones((b, s))
     for r in range(b):
         mask[r, s - r:] = 0.0
+    mask[list(masked_rows)] = 0.0
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask}
     if cfg.is_encdec or cfg.family == "vlm":
         t = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
@@ -87,27 +111,48 @@ def compress_inputs(rank: int):
 
 
 def _job_step():
+    import time
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.distributed.sharding import full_tree, place_tree
     from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as Mo
     from repro_torch.optimizer.adamw import adamw_init
     meshes = {m: init_device_mesh("cpu", m[0], mesh_dim_names=m[1])
               for m in (DATA_MODEL, POD_DATA_MODEL)}
+    drops = []
+    routed = Mo.expert_range_output
+
+    def counted(w, tokens, gate_vals, expert_idx, places, *rest):
+        capacity = rest[-2]
+        drops.append(int((places >= capacity).sum()))
+        return routed(w, tokens, gate_vals, expert_idx, places, *rest)
+    Mo.expert_range_output = counted
     out = {}
     for case in STEP_CASES:
-        arch, m, mb = case
-        cfg, opt_cfg, params, batch = step_setup(arch)
+        arch, m, mb = case[:3]
+        cfg, opt_cfg, params, batch = step_setup(arch, *case[3:])
         mesh = meshes[m]
+        t0 = time.perf_counter()
         step = ST.make_train_step(cfg, opt_cfg, microbatches=mb,
                                   warmup_steps=0, total_steps=STEP_COUNT,
                                   mesh=mesh)
         p = place_tree(params, ST.params_shardings(cfg, mesh))
         o = place_tree(adamw_init(params, opt_cfg),
                        ST.opt_state_shardings(cfg, mesh))
+        drops.clear()
         p, o, losses = run_steps(step, p, o, batch)
         out[case] = {"params": full_tree(p), "losses": losses,
                      "collectives": step.collectives.kinds,
-                     "local_tok_emb": tuple(p["tok_emb"].to_local().shape)}
+                     "local_tok_emb": tuple(p["tok_emb"].to_local().shape),
+                     "wall_s": time.perf_counter() - t0}
+        if cfg.family == "moe":
+            moe = (p["groups"]["moe"] if "groups" in p else p["layers"])
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, (coord, sum(drops)))
+            out[case].update(drops=every, local_w_gate=tuple(
+                moe["moe"]["w_gate"].to_local().shape))
     return out
 
 

@@ -150,6 +150,21 @@ def ulp_spread(ref_fn, jp) -> float:
     return rel_err(ref_fn(one_ulp(jp)), ref_fn(jp))
 
 
+def jax_route(probs, k, capacity):
+    """The reference's routing lines (``models/moe.py`` moe_apply) on
+    [G, t, E] probabilities: (gates, zero where dropped, expert ids,
+    places, kept), each [G, t, k]."""
+    e = probs.shape[-1]
+    gate_vals, expert_idx = jax.lax.top_k(probs, k)
+    onehot = jax.nn.one_hot(expert_idx, e, dtype=jnp.int32)
+    g, t = probs.shape[:2]
+    flat = onehot.reshape(g, t * k, e)
+    pos = ((jnp.cumsum(flat, axis=1) - flat).reshape(g, t, k, e)
+           * onehot).sum(-1)
+    keep = pos < capacity
+    return gate_vals * keep, expert_idx, pos, keep
+
+
 SPREAD_CAP = 1e-3
 
 

@@ -291,13 +291,13 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def _single_process(arch: str, mb: int):
+def _single_process(arch: str, mb: int, *cf):
     """The single-process step's parameters and losses after the job's
     steps, and its one-ulp moves: the largest relative change of a leaf
     and of a loss when every parameter moves one ulp."""
     from repro_torch.optimizer.adamw import adamw_init
     from repro_torch.utils.trees import tree_map
-    cfg, opt_cfg, params, batch = D.step_setup(arch)
+    cfg, opt_cfg, params, batch = D.step_setup(arch, *cf)
     step = TST.make_train_step(cfg, opt_cfg, microbatches=mb, warmup_steps=0,
                                total_steps=D.STEP_COUNT)
     p, _, losses = D.run_steps(step, params, adamw_init(params, opt_cfg),
@@ -313,16 +313,19 @@ def _single_process(arch: str, mb: int):
     return p, losses, move, lmove
 
 
-@pytest.mark.parametrize("case", D.STEP_CASES,
-                         ids=lambda c: f"{c[0]}-{'x'.join(c[1][1])}-mb{c[2]}")
+@pytest.mark.parametrize("case", D.STEP_CASES, ids=D.case_id)
 def test_sharded_step_matches_single_process(sharded_runs, case):
     """Loss and every parameter after 3 steps within ``bound(1e-5,
     move)`` of the single-process step, ``move`` its own one-ulp move
     (readings, smollm: parameters 3.0e-7 to 5.3e-7 against moves of
-    1.2e-4 to 1.6e-4, losses within 8.2e-8)."""
-    arch, (sizes, names), mb = case
+    1.2e-4 to 1.6e-4, losses within 8.2e-8).  The MoE cases run
+    expert-parallel: each rank keeps E / model experts, and the step
+    launched the expert region's collectives.  Where a rank's rows, or
+    a micro-batch's, are masked whole, the aux loss still counts once
+    (a rank's weight is 0 only where it holds no unmasked row)."""
+    arch, (sizes, names), mb = case[:3]
     got = sharded_runs[case]
-    p, losses, move, lmove = _single_process(arch, mb)
+    p, losses, move, lmove = _single_process(arch, mb, *case[3:])
     tol, ltol = bound(1e-5, move), bound(1e-5, lmove)
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(p)):
         assert a.shape == b.shape and _rel(a, b) < tol
@@ -335,6 +338,15 @@ def test_sharded_step_matches_single_process(sharded_runs, case):
                                     full[1] // size["data"])
     kinds = got["collectives"]
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(kinds)
+    if "drops" in got:
+        moe = p["groups"]["moe"] if "groups" in p else p["layers"]
+        n_layers, n_exp = moe["moe"]["w_gate"].shape[:2]
+        assert got["local_w_gate"][:2] == (n_layers, n_exp // size["model"])
+        assert {"region-in", "region-out", "stat-all-reduce",
+                "count-all-gather"} <= set(kinds)
+    if len(case) > 3 and case[3] is not None:
+        # drops fall on a batch rank after the first
+        assert any(n > 0 for coord, n in got["drops"] if coord["data"] > 0)
 
 
 def test_meshes():

@@ -3,7 +3,8 @@ train_4k cell on the (16, 16) mesh (one rank's sharded step on fake
 tensors over a fake 256-rank world) and a skipped long_500k cell; the
 per-device bytes equal the reference's ``NamedSharding.shard_shape``
 sums over its abstract leaves; a second run without ``--force`` keeps
-the cells written."""
+the cells written.  The MoE family's llama4-scout train_4k cell runs
+expert-parallel with its bytes equal to the reference's as well."""
 import json
 import math
 import os
@@ -70,3 +71,35 @@ def test_dryrun_cells(tmp_path):
     assert dryrun.main(argv) == 0
     assert (tmp_path / "smollm_360m__train_4k__single.json").stat() \
         .st_mtime_ns == stamp
+
+
+def test_dryrun_moe_train_cell(tmp_path):
+    """llama4-scout train_4k on the (16, 16) mesh: the sharded step
+    trains the MoE family with the batch split (16 experts, one a
+    ``model`` rank), its parameter and moment bytes are the reference's
+    ``shard_shape`` sums, and it launches the expert region's
+    collectives."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", "llama4-scout-17b-a16e", "--shape",
+                          "train_4k", "--multi-pod", "single", "--out",
+                          str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    cell = json.loads((tmp_path / "llama4_scout_17b_a16e__train_4k__single"
+                                  ".json").read_text())
+    assert cell["status"] == "ok", cell.get("error")
+    jc = jget("llama4-scout-17b-a16e")
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    mem = cell["memory"]
+    assert mem["param_bytes"] == _jbytes(JST.params_shardings(jc, mesh),
+                                         JST.abstract_params(jc))
+    assert mem["opt_state_bytes"] == _jbytes(
+        JST.opt_state_shardings(jc, mesh),
+        JST.abstract_opt_state(jc, AdamWConfig()))
+    assert cell["microbatches"] == JSP.microbatches_for(jc, "train_4k")
+    assert {"region-in", "region-out", "stat-all-reduce",
+            "count-all-gather"} <= set(cell["collectives"])
+    assert cell["flops"] > 0 and cell["peak_live_bytes"] > \
+        mem["param_bytes"] + mem["opt_state_bytes"]
+    assert cell["probe"]["units"] == jc.n_layers

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_lm import FP32, carried_params, configs, kv_leaves, npf, rel_err, tt
+from _torch_lm import (FP32, carried_params, configs, jax_route, kv_leaves,
+                       npf, rel_err, tt)
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
@@ -94,19 +95,6 @@ def test_cache_pos_update_and_cache_update_exactly(s_max, length, s_new):
     assert tc.length == int(jc.length) == length + s_new
 
 
-def _jax_route(probs, k, capacity):
-    """The reference's routing lines (``models/moe.py`` moe_apply)."""
-    e = probs.shape[-1]
-    gate_vals, expert_idx = jax.lax.top_k(probs, k)
-    onehot = jax.nn.one_hot(expert_idx, e, dtype=jnp.int32)
-    g, t = probs.shape[:2]
-    flat = onehot.reshape(g, t * k, e)
-    pos = ((jnp.cumsum(flat, axis=1) - flat).reshape(g, t, k, e)
-           * onehot).sum(-1)
-    keep = pos < capacity
-    return gate_vals * keep, expert_idx, pos, keep
-
-
 @pytest.mark.parametrize("top_k", [1, 2])
 def test_moe_route_ties_and_capacity_exactly(top_k):
     """Four experts with equal router columns in pairs (0 = 2, 1 = 3):
@@ -128,9 +116,13 @@ def test_moe_route_ties_and_capacity_exactly(top_k):
     logits = np.einsum("btd,de->bte", x, router).reshape(1, 24, 4)
     probs = np.array(jax.nn.softmax(jnp.asarray(logits), axis=-1))
     capacity = max(1, int(0.5 * 24 * top_k / 4))
-    jg, jidx, jpos, jkeep = _jax_route(jnp.asarray(probs), top_k, capacity)
-    tg, tidx, _, tpos, tkeep = Tmoe.route(torch.from_numpy(probs), top_k,
-                                          capacity)
+    jg, jidx, jpos, jkeep = jax_route(jnp.asarray(probs), top_k, capacity)
+    tgates, tidx = Tmoe.top_k(torch.from_numpy(probs[0]), top_k)
+    tpos = Tmoe.slice_places(tidx, Tmoe.group_ids(0, 24, 24),
+                             torch.zeros((1, 4), dtype=torch.long))
+    tkeep = tpos < capacity
+    tg, tidx, tpos, tkeep = (t[None] for t in (tgates * tkeep, tidx, tpos,
+                                               tkeep))
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     assert set(np.unique(tidx[..., 0].numpy())) <= {0, 1}
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
