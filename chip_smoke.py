@@ -215,12 +215,12 @@ Phases, each of which raises (exit code not 0) on any failure:
                 smollm-360m at full width: 65536 docs (~40 shards of
                 2^18 tokens), ``--similarity-prompt`` over four frequent
                 word ids (PV-DBOW training, row 11, and the prompt's shard
-                probabilities, row 1, on the card), batch 8 x 256, 20
+                probabilities, row 1, on the card), batch 8 x 256, 10
                 steps, a checkpoint every 10 in a temporary directory;
                 the counts of rows 1 and 11 zeroed before and read after
                 (path ``lm_train``), every logged loss finite.  (b) The
                 committed step restores bit for bit equal to the state in
-                memory; a second call to 30 steps resumes from step 20.
+                memory; a second call to 15 steps resumes from step 10.
                 (c) 10 steps of ``make_train_step`` (warmup_steps=1) on one
                 fixed batch at full width: the loss falls for smollm-360m
                 (lr 5e-3) and mamba2-780m (lr 1e-3, the reference's for
@@ -284,14 +284,36 @@ Phases, each of which raises (exit code not 0) on any failure:
                 as phase 19's (e)), micro-batches 1 and 2: the whole
                 sharded step bit for bit with the unsharded one, no
                 collective; (d) the EmApprox kernel counts read 0.
+ 22. TP       — tensor parallelism over ``model`` on one card: (a) on
+                its own one-rank NCCL group, smollm-360m at full width,
+                phase 20's 8 x 256 batch with part of a row masked:
+                ``make_sharded_grads`` (its ``TPShard`` of one rank
+                passed to ``loss_fn``: the split attention, MLPs,
+                embedding, head and vocabulary-parallel loss, each
+                collective the identity) equal to the unsharded
+                ``_value_and_grad`` bit for bit, no collective, both
+                walls; (b) with no process group, what each rank of a
+                split computes (``TPShard.simulated``) at full width,
+                8 x 256: smollm-360m at 5 ranks (head split, vocabulary
+                whole), at 16 (query-row split, 16 rows and 3072 words
+                a rank) and qwen2.5-14b at 8 (head split with QKV bias):
+                layer 0's self-attention and MLP, each rank's partial in
+                turn, summed or concatenated, and the head with the
+                vocabulary-parallel loss in lockstep
+                (``testing.lockstep``); every output and the input and
+                weight gradients within ``run_bound`` (twice the whole
+                sublayer's own move under one ulp of its inputs, at most
+                1e-3) of the whole sublayer's; (c) the EmApprox kernel
+                counts read 0.
 
 Each of the main paths (serving, megascan, top-k, their sym
 counterparts, training, k-means, the offline build, ingest, the stack
 and recommendation) is driven with the launch counters set to 0 just
 before it and read just after; each of its kernels must have launched,
 and launches made only to hold one route against another are left out.
-The LM serving path (phase 18) and the MoE path (phase 21) have no
-kernel: their counts must read 0; the LM training paths (phases 19 and
+The LM serving path (phase 18), the MoE path (phase 21) and the
+tensor-parallel path (phase 22) have no kernel: their counts must read
+0; the LM training paths (phases 19 and
 20) launch rows 1 and 11.
 Row 5 runs on four paths (the sym batch, the shard-granular planning,
 the sym top-k, recommendation): its record's ``launches`` is the sym
@@ -2985,7 +3007,7 @@ def lm_phase(dev: torch.device, args) -> None:
 # ----------------------------------------------------------------------
 TRAIN_ARCH = "smollm-360m"
 TRAIN_DOCS = 65536          # ~10.5 M tokens, ~40 shards of 2^18 tokens
-TRAIN_STEPS = (20, 30)      # the first call, then the resumed one
+TRAIN_STEPS = (10, 15)      # the first call, then the resumed one
 TRAIN_CKPT_EVERY = 10
 # the synthetic corpus' most frequent word ids (its seed, vocab 8192)
 TRAIN_PROMPT = (4150, 211, 4644, 8099)
@@ -3214,7 +3236,7 @@ def loss_falls(dev: torch.device) -> None:
 
 
 def remat_walls(cfg, opt_cfg, params, opt_state, batch, dev,
-                steps: int = 5) -> None:
+                steps: int = 3) -> None:
     """(f): the step wall (median of ``steps`` after one warm-up) and
     peak memory under each activation-checkpoint policy."""
     from repro_torch.launch.steps import make_train_step
@@ -3854,6 +3876,304 @@ def moe_phase(dev: torch.device, args, kernels: list) -> None:
         f"wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 22: tensor parallelism over ``model`` in the sharded step
+# ----------------------------------------------------------------------
+TP_ARCH = "smollm-360m"
+# (b): (arch, ranks, the attention split the ranks must take), full
+# width, layer 0 and the head, each rank's partial in turn
+TP_SPLITS = (("smollm-360m", 5, "heads"), ("smollm-360m", 16, "seq"),
+             ("qwen2.5-14b", 8, "heads"))
+TP_CAP = 1e-3     # (b): the most ``run_bound`` allows a joined output
+
+
+def dev_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, on the device."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {tuple(got.shape)} "
+                             f"{tuple(want.shape)}")
+    return float((got.detach().float() - want.detach().float()).abs().max()
+                 / want.detach().float().abs().max().clamp(min=1e-30))
+
+
+def nudged(tensors: list, seed: int) -> list:
+    """Every float32 entry of ``tensors`` moved one ulp up or down (a
+    random direction each), on their device."""
+    g = None
+    out = []
+    for a in tensors:
+        if g is None:
+            g = torch.Generator(device=a.device).manual_seed(seed)
+        up = torch.rand(a.shape, generator=g, device=a.device) < 0.5
+        inf = torch.full_like(a, float("inf"))
+        out.append(torch.nextafter(a, torch.where(up, inf, -inf)))
+    return out
+
+
+def tp_full_grads(dev: torch.device, mesh, seed: int) -> None:
+    """(a): smollm-360m at full width, phase 20's batch with part of a
+    row masked: ``make_sharded_grads`` on the one-rank mesh (its
+    ``TPShard`` of one rank passed to ``loss_fn``, every split sublayer
+    and the vocabulary-parallel loss on its path) equal to the
+    unsharded ``_value_and_grad`` bit for bit, no collective."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import TPShard
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config(TP_ARCH)
+    params = M.init_stacked_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    batch = fixed_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 5, dev)
+    batch["mask"][1, TRAIN_SEQ // 2:] = 0.0
+    # a first call on one short row takes the set-up out of the walls
+    ST._value_and_grad(params, fixed_batch(cfg, 1, 16, 9, dev), cfg)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    loss_u, g_u = ST._value_and_grad(params, batch, cfg)
+    torch.cuda.synchronize(dev)
+    wall_u = time.perf_counter() - t
+    want = tree_leaves(g_u)
+    placed = place_tree(params, ST.params_shardings(cfg, mesh))
+    grads = ST.make_sharded_grads(cfg, mesh)
+    seen = []
+    loss_fn = M.loss_fn
+
+    def spy(*args, **kw):
+        seen.append(kw.get("tp"))
+        return loss_fn(*args, **kw)
+    M.loss_fn = spy
+    try:
+        t = time.perf_counter()
+        loss_s, g_s = grads(placed, batch)
+        torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t
+    finally:
+        M.loss_fn = loss_fn
+    if not seen or any(not isinstance(tp, TPShard) or tp.size != 1
+                       or tp is not grads.tp for tp in seen):
+        raise AssertionError(f"(a) the sharded step did not pass its "
+                             f"one-rank TPShard to loss_fn: {seen}")
+    require_finite(loss_s, "(a) loss")
+    if not (torch.equal(loss_s, loss_u) and len(g_s) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(g_s, want))):
+        raise AssertionError("(a) the sharded loss and gradients are not "
+                             "the unsharded ones bit for bit")
+    if grads.collectives.kinds:
+        raise AssertionError(f"(a) a one-rank mesh launched "
+                             f"{grads.collectives.kinds}")
+    log(f"   (a) {TP_ARCH} at full width, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"make_sharded_grads through the tensor-parallel path (a split "
+        f"of {grads.tp.size} rank) equal to the unsharded loss "
+        f"({float(loss_s):.6f}) and all {len(want)} gradient leaves bit "
+        f"for bit, no collective launched; walls unsharded {wall_u:.3f} s, "
+        f"sharded {wall_s:.3f} s")
+    del params, placed, g_u, g_s, want
+    torch.cuda.empty_cache()
+
+
+def tp_join(fn, p: dict, x: torch.Tensor, ct: torch.Tensor, m: int,
+            rows: bool):
+    """The partials of ``fn(p, x, TPShard.simulated(r, m))`` of every
+    rank joined: (output, [input gradient, weight gradients]), the
+    outputs concatenated along dim 1 where ``rows`` (each rank's
+    cotangent its rows), else summed; the gradients summed."""
+    from repro_torch.distributed.collectives import TPShard
+    outs, grads = [], None
+    n = x.shape[1] // m
+    for r in range(m):
+        leaves = [x] + list(p.values())
+        ins = [a.detach().requires_grad_(True) for a in leaves]
+        out = fn(dict(zip(p, ins[1:])), ins[0], TPShard.simulated(r, m))
+        c = ct[:, r * n:(r + 1) * n] if rows else ct
+        g = torch.autograd.grad(out, ins, c)
+        outs.append(out.detach())
+        grads = list(g) if grads is None else [a + b for a, b in
+                                               zip(grads, g)]
+    return (torch.cat(outs, 1) if rows else sum(outs[1:], outs[0])), grads
+
+
+def tp_whole(fn, p: dict, x: torch.Tensor, ct: torch.Tensor,
+             dtype=torch.float32):
+    """(output, [input gradient, weight gradients]) of the whole
+    sublayer ``fn(p, x, NO_TP)``, its inputs and cotangent in
+    ``dtype``."""
+    from repro_torch.distributed.collectives import NO_TP
+    ins = [a.detach().to(dtype).requires_grad_(True)
+           for a in [x] + list(p.values())]
+    out = fn(dict(zip(p, ins[1:])), ins[0], NO_TP)
+    return out.detach(), list(torch.autograd.grad(out, ins, ct.to(dtype)))
+
+
+def tp_hold(what: str, names: list, got, want, moved, exact) -> str:
+    """Each joined output against the whole one within ``run_bound``
+    of the whole one's own move: the larger of its move under one ulp
+    of its inputs (``moved``), its own float32 rounding (its distance
+    from the same sublayer run on the inputs in float64, ``exact``)
+    and one float32 ulp of itself (a scalar such as the loss may round
+    back to its own bits).  A sum over a long dim (49152 logits) in
+    another order moves more than one ulp of its inputs does; the
+    rounding bounds that.  Returns the worst reading."""
+    worst = (0.0, "")
+    for name, a, b, c, e in zip(names, got, want, moved, exact):
+        err = dev_err(a, b)
+        move, rnd = dev_err(c, b), dev_err(b, e)
+        tol = run_bound(max(move, rnd, torch.finfo(torch.float32).eps),
+                        TP_CAP)
+        require_finite(a, f"(b) {what}: {name}")
+        if err > tol:
+            raise AssertionError(f"(b) {what}: {name} joined from the "
+                                 f"ranks' partials {err:.3g} from the "
+                                 f"whole (bound {tol:.3g}: one-ulp move "
+                                 f"{move:.3g}, float32 rounding {rnd:.3g})")
+        worst = max(worst, (err / tol, f"{name} {err:.3g} (bound {tol:.3g}"
+                                       f", move {move:.3g}, rounding "
+                                       f"{rnd:.3g})"))
+    return worst[1]
+
+
+def tp_ranks(dev: torch.device, seed: int) -> None:
+    """(b): at full width with no process group, what each rank of a
+    split of ``m`` computes (``TPShard.simulated(rank, m)``): layer 0's
+    self-attention and MLP, their partials summed or concatenated, and
+    the head with the vocabulary-parallel loss in lockstep
+    (``testing.lockstep``); outputs and the input and weight gradients
+    against the whole sublayer's (``tp_hold``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import NO_TP
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import attention_apply, attention_split
+    from repro_torch.models.config import DTypePolicy
+    from repro_torch.models.layers import materialize, swiglu
+    from repro_torch.testing import lockstep
+
+    fp32 = DTypePolicy("float32", "float32", "float32")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    for arch, m, split in TP_SPLITS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtypes=fp32)
+        got_split = attention_split(cfg, m, s)
+        if got_split != split:
+            raise AssertionError(f"(b) {arch} at {m} ranks: attention "
+                                 f"split {got_split}, not {split}")
+        g = torch.Generator(device=dev).manual_seed(seed + m)
+        attn = materialize(blocks.attn_defs(cfg), g, torch.float32, dev)
+        mlp = materialize(blocks.mlp_defs(cfg), g, torch.float32, dev)
+        x = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        ct = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        positions = torch.arange(s, device=dev)
+
+        def attn_fn(p, h, tp):
+            return attention_apply(p, h, cfg=cfg, positions=positions,
+                                   tp=tp)[0]
+
+        def mlp_fn(p, h, tp):
+            return swiglu(h, p["w_gate"], p["w_up"], p["w_down"], tp,
+                          cfg.d_ff)
+        readings = []
+        for what, fn, p, rows in (("attention", attn_fn, attn,
+                                   split == "seq"),
+                                  ("MLP", mlp_fn, mlp, False)):
+            names = ["output", "input gradient"] + [f"d{k}" for k in p]
+            out, gr = tp_join(fn, p, x, ct, m, rows)
+            w_out, w_gr = tp_whole(fn, p, x, ct)
+            moved = nudged([x] + list(p.values()), seed + 7)
+            u_out, u_gr = tp_whole(fn, dict(zip(p, moved[1:])), moved[0], ct)
+            e_out, e_gr = tp_whole(fn, p, x, ct, torch.float64)
+            readings.append(f"{what} " + tp_hold(
+                f"{arch}, {m} ranks, {what}", names, [out] + gr,
+                [w_out] + w_gr, [u_out] + u_gr, [e_out] + e_gr))
+            del out, gr, w_out, w_gr, u_out, u_gr, e_out, e_gr, moved
+
+        # the head and the vocabulary-parallel loss, in lockstep
+        v = cfg.vocab_size
+        head = {"lm_head": torch.randn((cfg.d_model, v), generator=g,
+                                       device=dev) / math.sqrt(cfg.d_model)}
+        h = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        labels = torch.randint(0, v, (b, s), generator=g, device=dev)
+        mask = torch.ones((b, s), device=dev)
+        mask[1, s // 2:] = 0.0
+        split_v = v % m == 0
+
+        def loss(hh, w, tp):
+            z = M._logits(hh, {"lm_head": w}, cfg, tp)
+            nll = M.vocab_parallel_nll(z, labels, tp if split_v else NO_TP)
+            return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+        def whole(hh, w, dtype=torch.float32):
+            hh, w = [a.detach().to(dtype).requires_grad_(True)
+                     for a in (hh, w)]
+            val = loss(hh, w, NO_TP)
+            return [val.detach()] + list(torch.autograd.grad(val, [hh, w]))
+        want = whole(h, head["lm_head"])
+        moved = whole(*nudged([h, head["lm_head"]], seed + 11))
+        exact = whole(h, head["lm_head"], torch.float64)
+        ins = [[a.detach().requires_grad_(True) for a in
+                (h, head["lm_head"])] for _ in range(m)]
+        vals = lockstep(lambda tp: loss(*ins[tp.rank], tp), m)
+        per_rank = [[val.detach(), *torch.autograd.grad(val, pair)]
+                    for val, pair in zip(vals, ins)]
+        if any(not torch.equal(r[0], per_rank[0][0]) for r in per_rank):
+            raise AssertionError(f"(b) {arch}, {m} ranks: the ranks' "
+                                 f"losses differ")
+        names = ["loss", "input gradient", "dlm_head"]
+        if split_v:
+            # each rank's logits columns: the input's gradient is summed
+            # over the ranks (region_in), the head's is each rank's chunk
+            joined = [per_rank[0][0]] + [sum(r[i] for r in per_rank)
+                                         for i in (1, 2)]
+            loss_reading = tp_hold(f"{arch}, {m} ranks, loss", names,
+                                   joined, want, moved, exact)
+        else:
+            # the vocabulary whole on every rank: each rank's is whole
+            for r in per_rank:
+                loss_reading = tp_hold(f"{arch}, {m} ranks, loss", names,
+                                       r, want, moved, exact)
+        torch.cuda.synchronize(dev)
+        log(f"   (b) {arch} at full width, {m} ranks ({split} split"
+            f"{', vocabulary ' + str(v // m) + ' a rank' if split_v else ', vocabulary whole'}, "
+            f"d_ff {cfg.d_ff // m} a rank), {b} x {s}: every output and "
+            f"gradient joined from the ranks' partials within twice the "
+            f"whole one's own move; worst (error / bound): "
+            + "; ".join(readings) + f"; loss {loss_reading}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del attn, mlp, head, want, moved, exact, ins, vals, per_rank
+        torch.cuda.empty_cache()
+
+
+def tp_phase(dev: torch.device, args, kernels: list) -> None:
+    """Phase 22: tensor parallelism over ``model`` on one card (module
+    docstring).  It launches no kernel of the record: the counts are
+    zeroed before it and must read 0 after (recorded as path
+    ``tp_mesh``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    names = list(KERNEL_MODULES)
+    zero_counts(names)
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before phase 22")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        tp_full_grads(dev, make_host_mesh("cuda"), args.seed)
+    finally:
+        dist.destroy_process_group()
+    tp_ranks(dev, args.seed)
+    counts = read_counts(names)
+    launched = {n: c for n, c in counts.items() if c}
+    if launched:
+        raise AssertionError(f"the tensor-parallel path launched kernels: "
+                             f"{launched}")
+    add_path(kernels, "tp_mesh", counts)
+    log(f"   (c) EmApprox kernel launches on the path: {counts}; phase 22 "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3942,6 +4262,11 @@ def main(argv=None) -> int:
         f"width (1 layer) on a one-rank NCCL mesh, each rank's routing and "
         f"expert ranges, Scout and Maverick smoke steps")
     moe_phase(dev, args, kernels)
+    log(f"== tensor parallelism over model on {card}: {TP_ARCH} at full "
+        f"width through the sharded step's split path on a one-rank NCCL "
+        f"mesh, each rank's partials at "
+        f"{', '.join(f'{a} m={m}' for a, m, _ in TP_SPLITS)}")
+    tp_phase(dev, args, kernels)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -22,11 +22,19 @@ replicated tensor that enters the expert region, ``region_out``
 ``stat_all_reduce`` (all-reduce both ways) on the load-balancing
 statistics; ``all_gather_axes`` stacks the per-rank routing counts.
 
+Tensor parallelism over ``model`` (``TPShard``) runs the same pair around
+each split sublayer (a column-split matmul after ``region_in``, a
+row-split one before ``region_out``), and two more: ``seq_all_gather``
+(all-gather forward, this rank's slice backward) joins a query-sequence
+split attention's output rows, and ``max_all_reduce`` (no gradient) is
+the vocabulary-parallel loss's max.
+
 An axis of size 1 launches nothing.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+import math
+from typing import Dict, Iterable, NamedTuple, Optional, Set, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,10 +49,13 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
 
 
 class CollectiveLog:
-    """Count and output bytes of the collectives launched, by kind."""
+    """Count and output bytes of the collectives launched, by kind;
+    ``gathered`` maps a mesh axis to the names of the parameter leaves
+    the sharded step gathered over it."""
 
     def __init__(self):
         self.kinds: Dict[str, Dict[str, float]] = {}
+        self.gathered: Dict[str, Set[str]] = {}
 
     def add(self, kind: str, out: torch.Tensor) -> None:
         k = self.kinds.setdefault(kind, {"count": 0, "bytes": 0})
@@ -111,23 +122,25 @@ class MeshAxes:
         return x.narrow(dim, self.coord[axis] * n, n)
 
     def all_reduce(self, x: torch.Tensor, axes: Iterable[str],
-                   kind: str = "all-reduce") -> torch.Tensor:
-        """``x`` summed over each of ``axes`` larger than 1 (in place
-        where ``x`` is contiguous; a collective writes no strided
-        view, so another tensor comes back for one)."""
+                   kind: str = "all-reduce",
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` reduced by ``op`` (a sum unless named) over each of
+        ``axes`` larger than 1 (in place where ``x`` is contiguous; a
+        collective writes no strided view, so another tensor comes back
+        for one)."""
         live = self.live(axes)
         if live and not x.is_contiguous():
             x = x.contiguous()
         for a in live:
-            dist.all_reduce(x, group=self.groups[a])
+            dist.all_reduce(x, op=op, group=self.groups[a])
             self.log.add(kind, x)
         return x
 
     def summed(self, x: torch.Tensor, axes: Tuple[str, ...],
-               kind: str) -> torch.Tensor:
-        """A new tensor: ``x`` summed over ``axes`` (``x`` untouched)."""
+               kind: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """A new tensor: ``x`` reduced over ``axes`` (``x`` untouched)."""
         return self.all_reduce(x.clone(memory_format=torch.contiguous_format),
-                               axes, kind)
+                               axes, kind, op)
 
 
 class _GatherShards(torch.autograd.Function):
@@ -159,12 +172,26 @@ class _RegionIn(torch.autograd.Function):
 
 class _RegionOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes: MeshAxes, names):
-        return axes.summed(x, names, "region-out")
+    def forward(ctx, x, axes: MeshAxes, names, kind):
+        return axes.summed(x, names, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
+
+
+class _SeqAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes: MeshAxes, names, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.first = axes.linear_rank(names) * ctx.n
+        for a in reversed(names):
+            x = axes.all_gather(x, dim, a, "seq-all-gather")
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.first, ctx.n), None, None, None
 
 
 class _StatAllReduce(torch.autograd.Function):
@@ -186,11 +213,12 @@ def region_in(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
     return _RegionIn.apply(x, axes, names) if names else x
 
 
-def region_out(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
+def region_out(x: torch.Tensor, axes: MeshAxes, names,
+               kind: str = "region-out") -> torch.Tensor:
     """The region's partial ``x`` summed over ``names``; the gradient
     passes unchanged (every rank of ``names`` holds it whole)."""
     names = axes.live(names)
-    return _RegionOut.apply(x, axes, names) if names else x
+    return _RegionOut.apply(x, axes, names, kind) if names else x
 
 
 def stat_all_reduce(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
@@ -199,6 +227,86 @@ def stat_all_reduce(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
     rank's addend."""
     names = axes.live(names)
     return _StatAllReduce.apply(x, axes, names) if names else x
+
+
+def seq_all_gather(x: torch.Tensor, axes: MeshAxes, names,
+                   dim: int) -> torch.Tensor:
+    """The ranks' ``x`` of ``names`` concatenated along ``dim`` in
+    ``linear_rank(names)`` order; the gradient of the whole is this
+    rank's slice of it (every rank of ``names`` holds it whole)."""
+    names = axes.live(names)
+    return _SeqAllGather.apply(x, axes, names, dim) if names else x
+
+
+def max_all_reduce(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``names``, with no gradient."""
+    names = axes.live(names)
+    x = x.detach()
+    return axes.summed(x, names, "max-all-reduce", dist.ReduceOp.MAX) \
+        if names else x
+
+
+class TPShard(NamedTuple):
+    """One rank's place in a tensor-parallel split over ``model``: the
+    ``MeshAxes``, the live axes the split runs over, this rank's index
+    in it and its size.  A split built by ``simulated`` has no live
+    axis: its collectives are identities, so one device computes the
+    rank's partial (its sum over ``region_out``, its rows before
+    ``seq_gather``), which the caller joins.  ``NO_TP`` is the split of
+    one rank, the unsharded model.
+
+    A split sublayer reads the rank's chunk of a weight through
+    ``part``: the weight comes whole (the chunk is cut out) or as the
+    chunk itself (the sharded step keeps it split, not gathered)."""
+    axes: Optional[MeshAxes] = None
+    names: Tuple[str, ...] = ()
+    rank: int = 0
+    size: int = 1
+
+    @classmethod
+    def over(cls, axes: MeshAxes, names=("model",)) -> "TPShard":
+        """The split over the live axes of ``names`` that the mesh has."""
+        live = axes.live(a for a in names if a in axes.size)
+        return cls(axes, live, axes.linear_rank(live),
+                   math.prod(axes.size[a] for a in live))
+
+    @classmethod
+    def simulated(cls, rank: int, size: int) -> "TPShard":
+        return cls(None, (), rank, size)
+
+    def splits(self, n: int) -> bool:
+        """Whether a dim of ``n`` entries is split: more than one rank,
+        each with a whole, non-empty chunk."""
+        return 1 < self.size <= n and n % self.size == 0
+
+    def part(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """This rank's chunk of ``dim`` (of ``full`` entries) of ``w``."""
+        n = full // self.size
+        if w.shape[dim] == n:
+            return w
+        if w.shape[dim] != full:
+            raise ValueError(f"dim {dim} of {tuple(w.shape)} is neither "
+                             f"{full} nor this rank's {n}")
+        return w.narrow(dim, self.rank * n, n)
+
+    def region_in(self, x: torch.Tensor) -> torch.Tensor:
+        return region_in(x, self.axes, self.names) if self.names else x
+
+    def region_out(self, x: torch.Tensor,
+                   kind: str = "region-out") -> torch.Tensor:
+        return region_out(x, self.axes, self.names, kind) \
+            if self.names else x
+
+    def seq_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return seq_all_gather(x, self.axes, self.names, dim) \
+            if self.names else x
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return max_all_reduce(x, self.axes, self.names) if self.names \
+            else x.detach()
+
+
+NO_TP = TPShard()
 
 
 def gather_shards(x: torch.Tensor, axes: MeshAxes, plan) -> torch.Tensor:

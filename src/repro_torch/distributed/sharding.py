@@ -6,8 +6,8 @@ model code.  The production mesh axes (``launch/mesh.py``):
 
   pod    DP across pods (grad all-reduce crosses the pod axis only)
   data   FSDP within a pod (params/opt sharded, gathered per layer)
-  model  TP / EP within a pod (the port shards storage on it; its
-         compute runs on gathered tensors, see ``launch/steps.py``)
+  model  TP / EP within a pod (attention heads or query rows, d_ff,
+         vocab and experts; see ``launch/steps.py``)
 
 A mesh is either the port's shape-only ``AbstractMesh`` (no device, no
 process group: placement and the dry-run read its shape) or a

@@ -20,7 +20,14 @@ status ok or skipped is not run again unless ``--force``):
     allocated, no collective moves data): its flops
     (``FlopCounterMode``), its peak live bytes (the storages its ops
     create, the local state included) and the collectives it launches
-    by kind (count, bytes).  The reference's two-point depth probe:
+    by kind (count, bytes).  The step splits the batch over the batch
+    axes and computes tensor-parallel over ``model``: each
+    self-attention by heads (or, where the head counts do not divide
+    ``model``, by query rows, the K/V projections whole), the MLPs over
+    ``d_ff``, the embedding, head and loss over ``vocab``, the MoE's
+    experts over ``model``, each where its dim divides; the norms, the
+    SSM, the cross-attention and the MoE router run whole on every
+    ``model`` rank.  The reference's two-point depth probe:
     the step at 1 and 2 layer units (``_probe_cfg``), total = outer +
     units x per unit (``_layer_units``).  Where the fake run raises,
     the cell is an error;

@@ -16,10 +16,27 @@ plain tensors, with the collectives run explicitly
   * the global batch is cut into micro-batches first (micro-batch i is
     rows [i b/mb, (i+1) b/mb)), then each is split over
     ``batch_axes(mesh, b // mb)``;
-  * each parameter is gathered whole where the forward reads it: the
+  * the ``model`` axis runs tensor parallelism (``TPShard``, passed to
+    ``M.loss_fn``), the reference's plan at its constraint sites: each
+    self-attention split by heads where both head counts divide the
+    axis, else by query rows (each rank its rows against every row's
+    K/V, the output rows gathered); each MLP over ``d_ff``; the
+    embedding, the head and the cross-entropy over ``vocab``, where
+    the dim divides.  The residual stream, the norms, the SSM, the
+    cross-attention and the MoE router are computed whole on every
+    ``model`` rank;
+  * each parameter is gathered where the forward reads it: the
     top-level leaves once a micro-batch, each layer's slice inside its
     (rematerialized) body; the gather's backward reduce-scatters over
-    the batch axes and slices over the others;
+    the batch axes and slices over the others.  A leaf the split reads
+    by its rank's chunk (``d_ff``; ``q_dim`` / ``kv_dim`` and the QKV
+    biases under the head split; ``vocab``) keeps that dim split, not
+    gathered over ``model``; a leaf read whole for a rank's query rows
+    (the attention weights under the row split) sums its gradient over
+    ``model`` (its gather there reduce-scatters).  Every other leaf is
+    gathered whole (smollm's ``q_dim`` over 16 ranks, 60 columns a
+    rank and not whole heads; Whisper's vocabulary 51865, left
+    replicated);
   * a leaf's gradient is all-reduced over the batch axes it is not
     split on;
   * each rank's loss and gradients are weighted by its share of the
@@ -39,8 +56,9 @@ plain tensors, with the collectives run explicitly
     statistics are summed over the batch axes.
 
 ``make_sharded_grads`` is the step's part before AdamW (loss and
-local gradients).  Axes of size 1 launch nothing and weigh nothing, so
-on a mesh of one device the step is the unsharded step op for op.  Not
+local gradients).  Axes of size 1 launch nothing and weigh nothing, and
+a split of one rank is the unsharded model, so on a mesh of one device
+the step is the unsharded step op for op.  Not
 supported: q8 moments under a sharded mesh (their quantisation blocks
 are the whole leaf's).
 """
@@ -52,8 +70,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.distributed.collectives import (
+    NO_TP,
     CollectiveLog,
     MeshAxes,
+    TPShard,
     gather_shards,
     shard_plan,
     split_axes,
@@ -222,13 +242,14 @@ def abstract_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 # step functions
 # ----------------------------------------------------------------------
 def _value_and_grad(params, batch, cfg: ModelConfig, gather=None,
-                    scale: Optional[torch.Tensor] = None, moe_shard=None):
+                    scale: Optional[torch.Tensor] = None, moe_shard=None,
+                    tp: TPShard = NO_TP):
     """(loss, gradient tree of ``params``) of ``M.loss_fn`` (times
     ``scale`` where given); a leaf the loss does not reach gets a zero
     gradient, as JAX gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss = M.loss_fn(tree_unflatten(params, leaves), batch, cfg,
-                     gather=gather, moe_shard=moe_shard)
+                     gather=gather, moe_shard=moe_shard, tp=tp)
     if scale is not None:
         loss = loss * scale
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -308,32 +329,64 @@ class _Gather:
     """The sharded step's ``gather(section, tree)`` (``models/model.py``):
     a tree of the per-layer views' leaves, each gathered whole by the
     plan of its stacked leaf's spec with the stacked dims dropped
-    (they are never split: the "layers" rule is None).  An expert leaf
-    (logical axis "experts") keeps its expert dim split: its plan
-    gathers the other dims only."""
+    (they are never split: the "layers" rule is None), but for the dims
+    the compute reads split:
+
+      * an expert leaf (logical axis "experts") keeps its expert dim
+        split;
+      * a leaf that the tensor-parallel split ``tp`` reads by its
+        rank's chunk of a dim (``M.tp_reads``) keeps that dim split:
+        its spec must split it over ``tp``'s axes and nothing else;
+      * a leaf read whole for a rank's query rows, whose gradient is a
+        partial over ``tp``, sums it: its gather over ``tp``'s axes
+        (which its spec must split) reduce-scatters in the backward.
+
+    Each gather adds the leaf's name to ``log.gathered`` under each
+    axis it gathers over."""
 
     def __init__(self, shardings: dict, logical: dict, axes: MeshAxes,
-                 batch: set):
-        def plans(tree, names, drop):
-            if isinstance(tree, dict):
-                return {k: plans(v, names[k], drop) for k, v in tree.items()}
-            if any(e is not None for e in tree.spec[:drop]):
-                raise ValueError(f"a stacked axis is split: {tree.spec}")
-            kept = tuple(i for i, n in enumerate(names[drop:])
-                         if n == "experts")
-            return tuple(e for e in shard_plan(tree.spec[drop:], axes, batch)
-                         if e[0] not in kept)
-
+                 batch: set, reads: dict, tp: TPShard):
         self.axes = axes
-        self.plans = {"top": {k: plans(v, logical[k], 0)
+        tp_axes = set(tp.names)
+
+        def plan(sh, names, read, drop, name):
+            if any(e is not None for e in sh.spec[:drop]):
+                raise ValueError(f"a stacked axis is split: {sh.spec}")
+            spec = sh.spec[drop:]
+            kept = {i for i, n in enumerate(names[drop:]) if n == "experts"}
+            if isinstance(read, int):
+                if set(axes.live(split_axes((spec[read],)))) != tp_axes:
+                    raise ValueError(f"{name}: the split reads dim {read} "
+                                     f"over {sorted(tp_axes)}, its spec "
+                                     f"splits it as {spec}")
+                kept.add(read)
+            out = tuple((d, a, b or (read == "partial" and a in tp_axes))
+                        for d, a, b in shard_plan(spec, axes, batch)
+                        if d not in kept)
+            if read == "partial" and not tp_axes <= {a for _, a, _ in out}:
+                raise ValueError(f"{name}: its gradient is a partial over "
+                                 f"{sorted(tp_axes)}, which its spec {spec} "
+                                 f"does not split")
+            return name, out
+
+        def plans(tree, names, read, drop, path):
+            if isinstance(tree, dict):
+                return {k: plans(v, names[k], read[k], drop, path + (k,))
+                        for k, v in tree.items()}
+            return plan(tree, names, read, drop, "/".join(path))
+
+        self.log = axes.log
+        self.plans = {"top": {k: plans(v, logical[k], reads[k], 0, (k,))
                               for k, v in shardings.items()
                               if k not in _STACKED}}
         for name in ("layers", "encoder"):
             if name in shardings:
-                self.plans[name] = plans(shardings[name], logical[name], 1)
+                self.plans[name] = plans(shardings[name], logical[name],
+                                         reads[name], 1, (name,))
         if "groups" in shardings:
             self.plans["groups"] = {
-                k: plans(v, logical["groups"][k], 2 if k == "plain" else 1)
+                k: plans(v, logical["groups"][k], reads["groups"][k],
+                         2 if k == "plain" else 1, ("groups", k))
                 for k, v in shardings["groups"].items()}
 
     def __call__(self, section: str, tree):
@@ -345,7 +398,10 @@ class _Gather:
         if isinstance(tree, dict):
             return {k: self._walk(v, plans[k]) if k in plans else v
                     for k, v in tree.items()}
-        return gather_shards(tree, self.axes, plans)
+        name, plan = plans
+        for _, a, _ in plan:
+            self.log.gathered.setdefault(a, set()).add(name)
+        return gather_shards(tree, self.axes, plan)
 
 
 def _expert_axes(cfg: ModelConfig, shardings, axes: MeshAxes
@@ -419,6 +475,7 @@ def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
     split = [split_axes(sh.spec) for sh in tree_leaves(shardings)]
     log = CollectiveLog()
     axes = MeshAxes(mesh, log)
+    tp = TPShard.over(axes)
     experts = _expert_axes(cfg, shardings, axes) \
         if cfg.family == "moe" else ()
 
@@ -445,16 +502,19 @@ def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
                 total > 0, counts / torch.clamp(total, min=1.0),
                 1.0 / math.prod(sizes[a] for a in batch_ax)))
         p_loc = tree_map(_local, params)
+        enc = batch.get("enc_inputs")
+        reads = M.tp_reads(cfg, tp.size, batch["tokens"].shape[1],
+                           enc.shape[1] if enc is not None else 0)
         # a mesh of one device gathers nothing: no walk of the views
         gather = _Gather(shardings, M.logical_axes(cfg), axes,
-                         set(batch_ax)) if axes.groups else None
+                         set(batch_ax), reads, tp) if axes.groups else None
         moe_shard = MoEShard(axes, batch_ax, first, experts) \
             if cfg.family == "moe" else None
 
         acc, losses = None, []
         for mb, scale in zip(mbs, scales):
             loss_i, g = _value_and_grad(p_loc, mb, cfg, gather, scale,
-                                        moe_shard)
+                                        moe_shard, tp)
             g = tree_leaves(g)
             if microbatches > 1:
                 g = [x.to(acc_dt) for x in g]
@@ -476,6 +536,7 @@ def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
     grads.collectives = log
     grads.split = split
     grads.axes = axes
+    grads.tp = tp
     return grads
 
 

@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import mesh_axis_size, shard_constraint
+from repro_torch.distributed.collectives import NO_TP, TPShard
 from repro_torch.models.layers import apply_rope, dot_bias
 
 NEG_INF = -1e30
@@ -106,16 +106,6 @@ def chunked_attention(
     scale = _inv_sqrt_in(hd, q.dtype)
     dev = q.device
     qpos = torch.arange(s, device=dev)[:, None] + q_offset
-
-    def _pin(m, l, acc):
-        # pin the carry's sharding: query-seq over "model" (context
-        # parallelism), because kv-head counts rarely divide the axis
-        m = shard_constraint(m, "batch", "kv_heads", None, "attn_q_seq")
-        l = shard_constraint(l, "batch", "kv_heads", None, "attn_q_seq")
-        acc = shard_constraint(acc, "batch", "kv_heads", None,
-                               "attn_q_seq", None)
-        return m, l, acc
-
     m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kh, g, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kh, g, s, hd), dtype=torch.float32, device=dev)
@@ -123,8 +113,6 @@ def chunked_attention(
         kci = k[:, ci * chunk:(ci + 1) * chunk]
         vci = v[:, ci * chunk:(ci + 1) * chunk]
         scores = torch.einsum("bskgd,btkd->bkgst", qg, kci) * scale
-        scores = shard_constraint(scores, "batch", "kv_heads", None,
-                                  "attn_q_seq", None)
         kpos = ci * chunk + torch.arange(chunk, device=dev)[None, :]
         mask = kpos < t                        # drop the zero-padding
         if causal:
@@ -139,7 +127,6 @@ def chunked_attention(
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgst,btkd->bkgsd", p, vci.float())
         m = m_new
-        m, l, acc = _pin(m, l, acc)
     out = acc / torch.clamp(l[..., None], min=1e-20)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
 
@@ -218,6 +205,27 @@ def cache_update(cache: KVCache, k_new: torch.Tensor,
     return KVCache(cache.k, cache.v, pos, cache.length + s_new)
 
 
+def attention_split(cfg, size: int, s: int) -> Optional[str]:
+    """How a tensor-parallel split of ``size`` ranks computes
+    self-attention over ``s`` query rows, the reference's choice at its
+    ``shard_constraint`` sites: "heads" when both head counts divide
+    ``size`` (each rank its query and KV heads), else "seq" where
+    ``s`` > 1 divides (each rank its ``s / size`` query rows against
+    every row's K/V), else None (every rank computes it whole)."""
+    if size <= 1:
+        return None
+    if cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0:
+        return "heads"
+    if s > 1 and s % size == 0:
+        return "seq"
+    return None
+
+
+def _project(x: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor]) -> torch.Tensor:
+    return x @ w if b is None else dot_bias(x, w, b)
+
+
 def attention_apply(
     p: dict,                       # attn params
     x: torch.Tensor,               # [B, S, d_model]
@@ -228,35 +236,47 @@ def attention_apply(
     causal: bool = True,
     window: int = 0,
     use_rope: bool = True,
+    tp: TPShard = NO_TP,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention with optional KV cache (decode/prefill)."""
+    """Self-attention with optional KV cache (decode/prefill).  Under a
+    tensor-parallel split ``tp`` (no cache) the rank computes its part
+    (``attention_split``): its heads' columns of ``wq`` / ``wk`` /
+    ``wv`` (and biases) and rows of ``wo``, the partial output summed
+    over the split; or its query rows (the causal and window masks at
+    their offset) against K/V of every row, the output rows gathered
+    over the split.  Either way ``x`` enters through ``region_in``: its
+    gradient from this rank is a partial."""
     b, s, _ = x.shape
-    if cfg.qkv_bias:
-        q = dot_bias(x, p["wq"], p["bq"])
-        k = dot_bias(x, p["wk"], p["bk"])
-        v = dot_bias(x, p["wv"], p["bv"])
-    else:
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    # TP over heads when the head count divides the model axis;
-    # otherwise sequence parallelism (seq always divides the shapes)
-    msize = mesh_axis_size("model")
-    heads_divide = bool(msize) and cfg.n_heads % msize == 0 and \
-        cfg.n_kv_heads % msize == 0
-    if msize is None or heads_divide:
-        q = shard_constraint(q, "batch", "seq", "heads", None)
-        k = shard_constraint(k, "batch", "seq", "kv_heads", None)
-        v = shard_constraint(v, "batch", "seq", "kv_heads", None)
-    elif s > 1:
-        q = shard_constraint(q, "batch", "attn_q_seq", None, None)
-        k = shard_constraint(k, "batch", "attn_q_seq", None, None)
-        v = shard_constraint(v, "batch", "attn_q_seq", None, None)
+    hd = cfg.head_dim
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    w = {n: p[n] for n in ("wq", "wk", "wv", "wo")}
+    bias = {n: p.get(n) if cfg.qkv_bias else None for n in ("bq", "bk", "bv")}
+    split = attention_split(cfg, tp.size, s)
+    if split is not None and cache is not None:
+        raise ValueError("tensor-parallel attention takes no KV cache")
+    if split is not None:
+        x = tp.region_in(x)
+    xq, q0 = x, 0
+    if split == "heads":
+        h, kh = h // tp.size, kh // tp.size
+        for n, full in (("wq", cfg.q_dim), ("wk", cfg.kv_dim),
+                        ("wv", cfg.kv_dim)):
+            w[n] = tp.part(w[n], 1, full)
+            if bias["b" + n[1]] is not None:
+                bias["b" + n[1]] = tp.part(bias["b" + n[1]], 0, full)
+        w["wo"] = tp.part(w["wo"], 0, cfg.q_dim)
+    elif split == "seq":
+        sq = s // tp.size
+        q0 = tp.rank * sq
+        xq = x[:, q0:q0 + sq]
+    sq = xq.shape[1]
+    q = _project(xq, w["wq"], bias["bq"]).reshape(b, sq, h, hd)
+    k = _project(x, w["wk"], bias["bk"]).reshape(b, s, kh, hd)
+    v = _project(x, w["wv"], bias["bv"]).reshape(b, s, kh, hd)
     if use_rope:
         if positions.ndim == 1:
             positions = positions[None, :]
-        q = apply_rope(q, positions, cfg.rope_theta)
+        q = apply_rope(q, positions[:, q0:q0 + sq], cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
@@ -273,12 +293,18 @@ def attention_apply(
         else:
             out = _decode_attention(q, new_cache, window=window)
     elif cfg.attn_impl == "chunked":
-        out = chunked_attention(q, k, v, causal=causal, window=window)
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                q_offset=q0)
     else:
-        out = dense_attention(q, k, v, causal=causal, window=window)
+        out = dense_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q0)
 
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"], new_cache
+    out = out.reshape(b, sq, h * hd) @ w["wo"]
+    if split == "heads":
+        out = tp.region_out(out)
+    elif split == "seq":
+        out = tp.seq_gather(out, 1)
+    return out, new_cache
 
 
 def _decode_attention(q: torch.Tensor, cache: KVCache, *,

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.collectives import NO_TP, TPShard
 from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -121,8 +122,13 @@ def block_defs(cfg, kind: str) -> dict:
 # ----------------------------------------------------------------------
 # apply
 # ----------------------------------------------------------------------
-def _gelu_mlp(h: torch.Tensor, p: dict) -> torch.Tensor:
-    return gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+def _gelu_mlp(h: torch.Tensor, p: dict, cfg, tp) -> torch.Tensor:
+    return gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"], tp,
+                    cfg.d_ff)
+
+
+def _swiglu(h: torch.Tensor, p: dict, cfg, tp) -> torch.Tensor:
+    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"], tp, cfg.d_ff)
 
 
 def _residual(x: torch.Tensor, y: torch.Tensor):
@@ -152,12 +158,15 @@ def apply_block(
     causal: bool = True,
     want_aux: bool = False,
     moe_shard=None,
+    tp: TPShard = NO_TP,
 ):
     """Returns (x_out, new_cache, new_ssm_state, aux_loss); aux_loss is
     the MoE router's load-balancing loss where ``want_aux`` (a training
     loss reads it; serving does not), else the float 0.0 (no launch).
     ``moe_shard``: the sharded train step's ``moe.MoEShard`` (the MoE
-    block's expert parallelism), or None."""
+    block's expert parallelism), or None.  ``tp``: the tensor-parallel
+    split of the self-attention and MLP sublayers (the SSM, the
+    cross-attention and the MoE router compute whole on every rank)."""
     new_cache, new_state = None, None
     zero = 0.0
     dtype = x.dtype
@@ -171,35 +180,35 @@ def apply_block(
         y = attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg)
         x, s32 = _residual(x, torch.tanh(p["cross"]["gate"]) * y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
-        return x + swiglu(h, **p["mlp"]), None, None, zero
+        return x + _swiglu(h, p["mlp"], cfg, tp), None, None, zero
 
     if kind == "encoder":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         y, _ = attn_mod.attention_apply(
             p["attn"], h, cfg=cfg, positions=positions, causal=False,
-            use_rope=False)
+            use_rope=False, tp=tp)
         x, s32 = _residual(x, y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
-        return x + _gelu_mlp(h, p["mlp"]), None, None, zero
+        return x + _gelu_mlp(h, p["mlp"], cfg, tp), None, None, zero
 
     if kind == "dec_cross":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         y, new_cache = attn_mod.attention_apply(
             p["attn"], h, cfg=cfg, positions=positions, cache=cache,
-            causal=causal, use_rope=False)
+            causal=causal, use_rope=False, tp=tp)
         x, s32 = _residual(x, y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
         x, s32 = _residual(
             x, attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg))
         h = _norm32(s32, p["norm3"], cfg, dtype)
-        return x + _gelu_mlp(h, p["mlp"]), new_cache, None, zero
+        return x + _gelu_mlp(h, p["mlp"], cfg, tp), new_cache, None, zero
 
     # dense / moe / hybrid share the attention sublayer
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.sliding_window if kind == "hybrid" else 0
     y, new_cache = attn_mod.attention_apply(
         p["attn"], h, cfg=cfg, positions=positions, cache=cache,
-        causal=causal, window=window)
+        causal=causal, window=window, tp=tp)
     if kind == "hybrid":
         ys, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state)
         mix = torch.softmax(p["mix"].float(), dim=-1)
@@ -213,5 +222,5 @@ def apply_block(
         if want_aux:
             aux = moe_mod.moe_aux_loss(p["moe"], h, cfg, moe_shard)
     else:
-        x = x + swiglu(h, **p["mlp"])
+        x = x + _swiglu(h, p["mlp"], cfg, tp)
     return x, new_cache, new_state, aux

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import shard_constraint
+from repro_torch.distributed.collectives import NO_TP, TPShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,10 +110,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    h = silu(x @ w_gate) * (x @ w_up)
-    h = shard_constraint(h, "batch", "seq", "d_ff")
-    return h @ w_down
+           w_down: torch.Tensor, tp: TPShard = NO_TP,
+           d_ff: int = 0) -> torch.Tensor:
+    """The SwiGLU MLP.  Where ``tp`` splits ``d_ff`` (the full width),
+    this rank's ``d_ff`` columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down``, the partial output summed over the split."""
+    split = tp.splits(d_ff)
+    if split:
+        x = tp.region_in(x)
+        w_gate, w_up = tp.part(w_gate, 1, d_ff), tp.part(w_up, 1, d_ff)
+        w_down = tp.part(w_down, 0, d_ff)
+    y = (silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return tp.region_out(y) if split else y
 
 
 def dot_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,10 +132,21 @@ def dot_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
-             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+             w_out: torch.Tensor, b_out: torch.Tensor, tp: TPShard = NO_TP,
+             d_ff: int = 0) -> torch.Tensor:
+    """The GELU MLP, split over ``d_ff`` as ``swiglu``; ``b_out`` is
+    added once, to the float32 sum of the partials, which is rounded
+    once to x's dtype (``dot_bias``'s rounding)."""
+    split = tp.splits(d_ff)
+    if split:
+        x = tp.region_in(x)
+        w_in, b_in = tp.part(w_in, 1, d_ff), tp.part(b_in, 0, d_ff)
+        w_out = tp.part(w_out, 0, d_ff)
     h = gelu_tanh(dot_bias(x, w_in, b_in))
-    h = shard_constraint(h, "batch", "seq", "d_ff")
-    return dot_bias(h, w_out, b_out)
+    y = h.float() @ w_out.float()
+    if split:
+        y = tp.region_out(y)
+    return (y + b_out.float()).to(x.dtype)
 
 
 # ----------------------------------------------------------------------

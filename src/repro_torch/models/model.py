@@ -25,12 +25,19 @@ sites; on plain tensors they return their argument.
 
 The sharded train step (``launch/steps.py``) passes ``gather``: the
 parameters are then this rank's shards, and ``gather(section, tree)``
-returns a tree's leaves whole.  The top-level leaves are gathered once
-a call, each layer's (group's) inside its body, so that a
-rematerialized body gathers again.  For the MoE family it also passes
-``moe_shard`` (``moe.MoEShard``): the expert leaves then stay split
-over ``model`` and the MoE block computes this rank's rows of the
-global micro-batch on its experts.
+returns a tree's leaves as the forward reads them.  The top-level
+leaves are gathered once a call, each layer's (group's) inside its
+body, so that a rematerialized body gathers again.  It passes ``tp``
+(``collectives.TPShard``), the tensor-parallel split over ``model``:
+the self-attention and MLP sublayers compute this rank's heads, query
+rows or ``d_ff`` columns, the embedding, the head and the loss its
+vocabulary rows (``_embed``, ``_logits``, ``vocab_parallel_nll``);
+``tp_reads`` says which part of each leaf that is, and those leaves
+stay split over ``model``.  The unsharded model is the split of one
+rank (``NO_TP``).  For the MoE family it also passes ``moe_shard``
+(``moe.MoEShard``): the expert leaves then stay split over ``model``
+and the MoE block computes this rank's rows of the global micro-batch
+on its experts.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.collectives import NO_TP, TPShard
 from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import blocks
@@ -264,7 +272,8 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
 
 
 def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig,
-                 remat: str = "none", gather=None) -> torch.Tensor:
+                 remat: str = "none", gather=None,
+                 tp: TPShard = NO_TP) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings [B, T, d]."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device)
@@ -273,7 +282,7 @@ def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig,
         if gather is not None:
             lp = gather("encoder", lp)
         return blocks.apply_block(lp, h, cfg, "encoder", positions=positions,
-                                  causal=False)[0]
+                                  causal=False, tp=tp)[0]
 
     body = _maybe_remat(body, remat)
     for lp in params["encoder"]:
@@ -285,6 +294,71 @@ def _head(cparams, cfg: ModelConfig) -> torch.Tensor:
     return cparams["tok_emb"].T if cfg.tie_embeddings else cparams["lm_head"]
 
 
+def _embed(tok_emb: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+           tp: TPShard) -> torch.Tensor:
+    """The token embeddings.  Where ``tp`` splits the vocabulary, the
+    rank looks up the ids of its row range (zero for the others) and
+    the partials are summed over the split."""
+    v = cfg.vocab_size
+    if not tp.splits(v):
+        return tok_emb[tokens]
+    n = v // tp.size
+    local = tokens - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = tp.part(tok_emb, 0, v)[local.clamp(0, n - 1)]
+    return tp.region_out(torch.where(mine[..., None], rows,
+                                     rows.new_zeros(())))
+
+
+def _logits(x: torch.Tensor, cparams, cfg: ModelConfig,
+            tp: TPShard) -> torch.Tensor:
+    """``x @ head``: this rank's vocabulary columns where ``tp`` splits
+    the vocabulary (``x`` entering through ``region_in``)."""
+    head = _head(cparams, cfg)
+    if not tp.splits(cfg.vocab_size):
+        return x @ head
+    return tp.region_in(x) @ tp.part(head, 1, cfg.vocab_size)
+
+
+def tp_reads(cfg: ModelConfig, size: int, seq: int, enc_seq: int = 0):
+    """How a tensor-parallel split of ``size`` ranks reads each
+    parameter, as a tree of ``param_defs``' shape: the dim (of the
+    per-layer leaf, the stacked dims dropped) whose rank chunk the
+    compute reads, "partial" where it reads the leaf whole and its
+    gradient is a partial over the split (a query-sequence split
+    attention, over ``seq`` rows, or ``enc_seq`` in the encoder), or
+    "whole".  The forward's choices: ``_embed`` / ``_logits`` over
+    ``vocab``, the MLPs over ``d_ff`` (``layers.swiglu``), the
+    self-attention by ``attention.attention_split``."""
+    from repro_torch.models.attention import attention_split
+    tp = TPShard.simulated(0, size)
+
+    def read(path, d: ParamDef):
+        names = d.logical_axes
+        while names and names[0] == "layers":
+            names = names[1:]
+        parent = path[-2] if len(path) > 1 else None
+        axis = None
+        if path[0] in ("tok_emb", "lm_head"):
+            axis = "vocab" if tp.splits(cfg.vocab_size) else None
+        elif parent == "mlp":
+            axis = "d_ff" if tp.splits(cfg.d_ff) else None
+        elif parent == "attn":
+            split = attention_split(
+                cfg, size, enc_seq if path[0] == "encoder" else seq)
+            if split == "seq":
+                return "partial"
+            axis = split and ("q_dim" if "q_dim" in names else "kv_dim")
+        return names.index(axis) if axis is not None and axis in names \
+            else "whole"
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return read(path, tree)
+    return walk(param_defs(cfg))
+
+
 def _forward_impl(
     params,
     tokens: torch.Tensor,
@@ -294,25 +368,28 @@ def _forward_impl(
     remat: str = "none",
     gather=None,
     moe_shard=None,
+    tp: TPShard = NO_TP,
 ) -> Tuple[torch.Tensor, "torch.Tensor | float"]:
     """(logits, the MoE layers' summed load-balancing loss where
-    ``want_aux``, else 0.0).  ``remat`` is the activation-checkpoint
-    policy of each layer body (each group's, in the grouped models;
-    ``_maybe_remat``): the training loss passes ``cfg.remat``.
-    ``gather``, ``moe_shard``: see the module docstring."""
+    ``want_aux``, else 0.0); the logits are this rank's vocabulary
+    columns where ``tp`` splits the vocabulary.  ``remat`` is the
+    activation-checkpoint policy of each layer body (each group's, in
+    the grouped models; ``_maybe_remat``): the training loss passes
+    ``cfg.remat``.  ``gather``, ``moe_shard``, ``tp``: see the module
+    docstring."""
     compute = cfg.dtypes.compute_dtype
     cparams = tree_cast(params, compute)
     if gather is not None:
         cparams = gather("top", cparams)
     b, s = tokens.shape
-    x = cparams["tok_emb"][tokens]
+    x = _embed(cparams["tok_emb"], tokens, cfg, tp)
     x = shard_constraint(x, "batch", "seq", "d_model")
     positions = torch.arange(s, device=x.device)
 
     enc = None
     if cfg.is_encdec:
         enc = _run_encoder(cparams, enc_inputs.to(compute), cfg, remat,
-                           gather)
+                           gather, tp)
         x = x + cparams["dec_pos_emb"][:s][None]
     elif cfg.family == "vlm":
         enc = enc_inputs.to(compute)
@@ -320,7 +397,7 @@ def _forward_impl(
     def plain_layers(gp, h):
         for lp in gp["plain"]:
             h, _, _, _ = blocks.apply_block(lp, h, cfg, "dense",
-                                            positions=positions)
+                                            positions=positions, tp=tp)
         return h
 
     kind = _layer_kind(cfg)
@@ -331,7 +408,8 @@ def _forward_impl(
                 gp = gather("groups", gp)
             h = plain_layers(gp, h)
             return blocks.apply_block(gp["cross"], h, cfg, "cross",
-                                      positions=positions, enc=enc)[0]
+                                      positions=positions, enc=enc,
+                                      tp=tp)[0]
         body = _maybe_remat(body, remat)
         for gp in cparams["groups"]:
             x = body(gp, x)
@@ -343,7 +421,7 @@ def _forward_impl(
             h, _, _, aux = blocks.apply_block(gp["moe"], h, cfg, "moe",
                                               positions=positions,
                                               want_aux=want_aux,
-                                              moe_shard=moe_shard)
+                                              moe_shard=moe_shard, tp=tp)
             return h, aux
         body = _maybe_remat(body, remat)
         for gp in cparams["groups"]:
@@ -356,7 +434,7 @@ def _forward_impl(
             h, _, _, aux = blocks.apply_block(lp, h, cfg, kind,
                                               positions=positions, enc=enc,
                                               want_aux=want_aux,
-                                              moe_shard=moe_shard)
+                                              moe_shard=moe_shard, tp=tp)
             return h, aux
         body = _maybe_remat(body, remat)
         for lp in cparams["layers"]:
@@ -364,7 +442,7 @@ def _forward_impl(
             aux_total = aux_total + aux
 
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
-    logits = x @ _head(cparams, cfg)
+    logits = _logits(x, cparams, cfg, tp)
     return shard_constraint(logits, "batch", "seq", "vocab"), aux_total
 
 
@@ -380,25 +458,65 @@ def forward(
     return logits
 
 
+class _VocabNLL(torch.autograd.Function):
+    """The next-token cross-entropy of this rank's float32 vocabulary
+    columns ``z``: log Σ exp(z - m) + m - z_label, the max ``m`` over
+    the split (no gradient), the sum of exponentials and the label's
+    logit (its rank's pick, zero on the others) summed over it.  Its
+    gradient, exp(z - m) / Σ - onehot(label), is formed in one buffer
+    from the saved exponentials (the collectives' backward is the
+    identity: every rank holds the loss whole)."""
+
+    @staticmethod
+    def forward(ctx, z, labels, tp):
+        n = z.shape[-1]
+        m = tp.max(z.amax(dim=-1))
+        local = labels.long() - tp.rank * n
+        mine = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)[..., None]
+        e = (z - m[..., None]).exp_()
+        pick = torch.gather(z, -1, idx)[..., 0]
+        sums = tp.region_out(torch.stack([e.sum(dim=-1),
+                                          torch.where(mine, pick, 0.0)]),
+                             "loss-all-reduce")
+        ctx.save_for_backward(e, sums[0], idx, mine)
+        return torch.log(sums[0]) + m - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, mine = ctx.saved_tensors
+        grad = e * (g / se)[..., None]
+        return grad.scatter_add_(-1, idx, -(g * mine)[..., None]), None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       tp: TPShard = NO_TP) -> torch.Tensor:
+    """[B, S] float32 next-token cross-entropy of ``labels`` from this
+    rank's vocabulary columns ``logits`` (the whole vocabulary under a
+    split of one rank), so that no rank holds the whole logits
+    (``_VocabNLL``)."""
+    return _VocabNLL.apply(logits.float(), labels, tp)
+
+
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            aux_coef: float = 0.01, gather=None,
-            moe_shard=None) -> torch.Tensor:
+            aux_coef: float = 0.01, gather=None, moe_shard=None,
+            tp: TPShard = NO_TP) -> torch.Tensor:
     """Masked next-token cross-entropy in fp32 (+ the MoE load-balance
     aux loss) of the *stacked* parameter tree (``param_defs``' layout,
     the training state).  The tree is cast to the compute dtype and
     taken apart into per-layer views inside every call, so each call
     builds its own autograd graph and the gradients land on the stacked
     leaves.  Each layer (group) body runs under ``cfg.remat``.
-    ``gather``, ``moe_shard``: the sharded step's (see the module
-    docstring)."""
+    ``gather``, ``moe_shard``, ``tp``: the sharded step's (see the
+    module docstring); the cross-entropy is ``vocab_parallel_nll``."""
     views = _unstack_params(tree_cast(params, cfg.dtypes.compute_dtype))
     logits, aux = _forward_impl(views, batch["tokens"], cfg,
                                 batch.get("enc_inputs"),
                                 want_aux=cfg.family == "moe",
                                 remat=cfg.remat, gather=gather,
-                                moe_shard=moe_shard)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
+                                moe_shard=moe_shard, tp=tp)
+    nll = vocab_parallel_nll(logits, batch["labels"],
+                             tp if tp.splits(cfg.vocab_size) else NO_TP)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)

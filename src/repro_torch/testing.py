@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lsh
+from repro_torch.distributed.collectives import TPShard
 
 # The JAX package's own kernel test shapes (tests/test_kernels.py):
 # row 11 (negsamp) as (B, dim, K, temperature), row 12 (k-means
@@ -286,3 +287,66 @@ def hamming_warp_sums(q_packed: torch.Tensor, sig: torch.Tensor,
             - torch.repeat_interleave(first, cnt))
     vals = hamming_similarity_ref(q_packed, sig[rows], bits, temperature)
     return warp_slot_sums(vals, first, cnt)
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism over ``model`` on one device
+# ----------------------------------------------------------------------
+class Lockstep(TPShard):
+    """Rank ``rank`` of ``size`` of a tensor-parallel split run in one
+    process, every rank in turn (``lockstep``): the i-th collective
+    returns ``answers[i]`` (what every rank fed it in an earlier pass)
+    where it is known, else a stand-in of its shape; ``calls`` records
+    what this rank fed each.  The forward values are the collectives';
+    the backward of a sum passes to this rank's addend alone, of a
+    gather to this rank's rows, as on a mesh (``region_in``'s sum over
+    the ranks is left to the caller)."""
+
+    def __new__(cls, rank: int, size: int, answers: dict):
+        self = super().__new__(cls, None, ("model",), rank, size)
+        self.answers, self.calls = answers, []
+        return self
+
+    def _call(self, kind: str, x: torch.Tensor):
+        self.calls.append((kind, x.detach()))
+        return self.answers.get(len(self.calls) - 1)
+
+    def region_in(self, x):
+        return x
+
+    def region_out(self, x, kind="region-out"):
+        total = self._call("sum", x)
+        return x if total is None else total + (x - x.detach())
+
+    def seq_gather(self, x, dim):
+        parts = self._call("cat", x)
+        if parts is None:            # a stand-in of the gathered shape
+            return torch.cat([x] * self.size, dim)
+        return torch.cat([x if i == self.rank else p
+                          for i, p in enumerate(parts)], dim)
+
+    def max(self, x):
+        top = self._call("max", x)
+        return x.detach() if top is None else top
+
+
+def lockstep(fn, m: int):
+    """``[fn(tp) for each rank]`` of ``m`` ``Lockstep`` ranks, once
+    every collective of the run is answered: pass k + 1 answers the
+    k-th collective from pass k's inputs (each rank's calls come in the
+    same order)."""
+    answers: dict = {}
+    while True:
+        ranks = [Lockstep(r, m, answers) for r in range(m)]
+        outs = [fn(tp) for tp in ranks]
+        if len(answers) == len(ranks[0].calls):
+            return outs
+        i = len(answers)
+        kind = ranks[0].calls[i][0]
+        vals = [tp.calls[i][1] for tp in ranks]
+        if kind == "sum":
+            answers[i] = sum(vals[1:], vals[0])
+        elif kind == "max":
+            answers[i] = torch.stack(vals).amax(0)
+        else:
+            answers[i] = vals

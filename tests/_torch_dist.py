@@ -5,14 +5,21 @@ thread each.
     PYTHONPATH=src:tests python tests/_torch_dist.py <job> <rank> <world> <dir>
 
 ``spawn(job, world, dir)`` starts ``world`` ranks of ``job`` and returns
-what each rank saved (``torch.save``) to ``<dir>/<job>.<rank>.pt``.
+what each rank saved (``torch.save``) to ``<dir>/<job>.<rank>.pt``;
+``single_process`` / ``single_process_grads`` give the single-process
+step the test holds each case to, and ``python tests/_torch_dist.py
+readings <dir>`` prints every case's error against it.
 Jobs:
 
   step      8 ranks: the sharded train step (smoke width, fp32
             policy, warmup 0, 3 steps) of each of ``STEP_CASES``, from
-            ``step_setup``'s state and batch: smollm on a (4, 2) (data,
-            model) mesh and a (2, 2, 2) (pod, data, model) mesh with
-            micro-batches 1 and 2, and a grouped (VLM) and an SSM arch
+            ``step_setup``'s state and batch, tensor-parallel over
+            ``model`` where a sublayer's dim divides: smollm on a (4, 2)
+            (data, model) mesh and a (2, 2, 2) (pod, data, model) mesh
+            with micro-batches 1 and 2 (attention split by heads),
+            smollm on a (2, 4) mesh (its 2 KV heads do not divide 4:
+            the query-sequence split) and qwen2.5 (QKV bias) on the
+            (4, 2) mesh, and a grouped (VLM) and an SSM arch
             on the (2, 2, 2) mesh (Whisper, the encoder-decoder, is
             left out: its smoke model moves 0.45 of a leaf's max under
             one ulp of its parameters, which no bound can hold; its
@@ -28,6 +35,7 @@ Jobs:
             of a (2, 2) mesh.
 """
 import dataclasses
+import functools
 import os
 import pathlib
 import subprocess
@@ -39,12 +47,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA_MODEL = ((4, 2), ("data", "model"))
 POD_DATA_MODEL = ((2, 2, 2), ("pod", "data", "model"))
+DATA_MODEL4 = ((2, 4), ("data", "model"))   # 2 KV heads: the seq split
 SCOUT, MAVERICK = "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b"
 DROP_CF = 0.5               # the capacity factor of the case with drops
 MASKED_ROWS = (2, 4, 5, 6, 7)  # rows masked whole in one case
 # (arch, mesh, micro-batches[, capacity factor[, rows masked whole]])
 STEP_CASES = tuple(("smollm_360m", mesh, mb)
                    for mesh in (DATA_MODEL, POD_DATA_MODEL) for mb in (1, 2)) \
+    + (("smollm_360m", DATA_MODEL4, 1), ("qwen2_5_14b", DATA_MODEL, 1)) \
     + tuple((arch, POD_DATA_MODEL, 2) for arch in
             ("llama_3_2_vision_11b", "mamba2_780m")) \
     + ((SCOUT, DATA_MODEL, 1), (SCOUT, DATA_MODEL, 2),
@@ -52,13 +62,22 @@ STEP_CASES = tuple(("smollm_360m", mesh, mb)
        (SCOUT, DATA_MODEL, 2, None, MASKED_ROWS))
 STEP_COUNT = 3
 STEP_LR = 1e-3
+STEP_SEQ = 16
+# archs whose parameters after the steps cannot be held to the
+# single-process step's: qwen2.5's zero-initialised QKV biases leave
+# entries whose AdamW update flips sign under one ulp of the parameters
+# (the single-process step's own move reads 1.0e-2); their first step's
+# loss and gradients are held instead
+GRADS_ONLY = ("qwen2_5_14b",)
 
 
 def case_id(case) -> str:
-    arch, (_, names), mb = case[:3]
+    arch, (sizes, names), mb = case[:3]
     cf = f"-cf{case[3]}" if len(case) > 3 and case[3] is not None else ""
     masked = "-masked" if len(case) > 4 else ""
-    return f"{arch}-{'x'.join(names)}-mb{mb}{cf}{masked}"
+    shape = "" if case[1] in (DATA_MODEL, POD_DATA_MODEL) else \
+        "-" + "x".join(map(str, sizes))
+    return f"{arch}-{'x'.join(names)}{shape}-mb{mb}{cf}{masked}"
 
 
 def step_setup(arch: str, capacity_factor=None, masked_rows=()):
@@ -80,7 +99,7 @@ def step_setup(arch: str, capacity_factor=None, masked_rows=()):
     params = M.init_stacked_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
     rng = np.random.default_rng(5)
-    b, s = 8, 16
+    b, s = 8, STEP_SEQ
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1)))
     mask = torch.ones((b, s))
     for r in range(b):
@@ -102,6 +121,54 @@ def run_steps(step, params, opt_state, batch, n: int = STEP_COUNT):
     return params, opt_state, losses
 
 
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+@functools.lru_cache(maxsize=None)
+def single_process(arch: str, mb: int, *cf):
+    """The single-process step's parameters and losses after the job's
+    steps, and its one-ulp moves: the largest relative change of a leaf
+    and of a loss when every parameter moves one ulp."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.optimizer.adamw import adamw_init
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    cfg, opt_cfg, params, batch = step_setup(arch, *cf)
+    step = ST.make_train_step(cfg, opt_cfg, microbatches=mb, warmup_steps=0,
+                              total_steps=STEP_COUNT)
+    p, _, losses = run_steps(step, params, adamw_init(params, opt_cfg),
+                             batch)
+    g = torch.Generator().manual_seed(7)
+    inf = torch.tensor(float("inf"))
+    nudged = tree_map(lambda x: torch.nextafter(
+        x, torch.where(torch.rand(x.shape, generator=g) < 0.5, inf, -inf)),
+        params)
+    pu, _, lu = run_steps(step, nudged, adamw_init(nudged, opt_cfg), batch)
+    move = max(rel(a, b) for a, b in zip(tree_leaves(pu), tree_leaves(p)))
+    lmove = max(abs(a - b) / abs(b) for a, b in zip(lu, losses))
+    return p, losses, move, lmove
+
+
+@functools.lru_cache(maxsize=None)
+def single_process_grads(arch: str):
+    """The single-process loss and gradients at the job's initial
+    parameters and batch, and the gradients' largest relative move
+    under one ulp of the parameters."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    cfg, _, params, batch = step_setup(arch)
+    loss, grads = ST._value_and_grad(params, batch, cfg)
+    g = torch.Generator().manual_seed(7)
+    inf = torch.tensor(float("inf"))
+    nudged = tree_map(lambda x: torch.nextafter(
+        x, torch.where(torch.rand(x.shape, generator=g) < 0.5, inf, -inf)),
+        params)
+    _, moved = ST._value_and_grad(nudged, batch, cfg)
+    move = max(rel(a, b) for a, b in zip(tree_leaves(moved),
+                                         tree_leaves(grads)))
+    return float(loss), tree_leaves(grads), move
+
+
 def compress_inputs(rank: int):
     """(x, error) of one rank of the compress job."""
     rng = np.random.default_rng(100 + rank)
@@ -118,8 +185,10 @@ def _job_step():
     from repro_torch.launch import steps as ST
     from repro_torch.models import moe as Mo
     from repro_torch.optimizer.adamw import adamw_init
+    from repro_torch.utils.trees import tree_leaves
+    from torch.distributed.tensor import DTensor
     meshes = {m: init_device_mesh("cpu", m[0], mesh_dim_names=m[1])
-              for m in (DATA_MODEL, POD_DATA_MODEL)}
+              for m in (DATA_MODEL, POD_DATA_MODEL, DATA_MODEL4)}
     drops = []
     routed = Mo.expert_range_output
 
@@ -140,12 +209,25 @@ def _job_step():
         p = place_tree(params, ST.params_shardings(cfg, mesh))
         o = place_tree(adamw_init(params, opt_cfg),
                        ST.opt_state_shardings(cfg, mesh))
+        first = {}
+        if arch in GRADS_ONLY:
+            grads = ST.make_sharded_grads(cfg, mesh, mb)
+            shardings = tree_leaves(ST.params_shardings(cfg, mesh))
+            loss0, g0 = grads(place_tree(params, ST.params_shardings(
+                cfg, mesh)), batch)
+            first = {"loss0": float(loss0), "grads": [
+                DTensor.from_local(g, mesh, sh.placements, run_check=False,
+                                   shape=a.shape, stride=a.stride())
+                .full_tensor() for g, sh, a in
+                zip(g0, shardings, tree_leaves(params))]}
         drops.clear()
         p, o, losses = run_steps(step, p, o, batch)
         out[case] = {"params": full_tree(p), "losses": losses,
                      "collectives": step.collectives.kinds,
+                     "gathered": {a: sorted(v) for a, v in
+                                  step.collectives.gathered.items()},
                      "local_tok_emb": tuple(p["tok_emb"].to_local().shape),
-                     "wall_s": time.perf_counter() - t0}
+                     "wall_s": time.perf_counter() - t0, **first}
         if cfg.family == "moe":
             moe = (p["groups"]["moe"] if "groups" in p else p["layers"])
             coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -214,5 +296,34 @@ def main(job: str, rank: int, world: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
+def readings(tmp: str) -> None:
+    """Print each step case's largest relative error against the
+    single-process step and that step's own one-ulp move (parameters
+    after the steps and losses; the first step's gradients for
+    ``GRADS_ONLY``), and the case's wall in the job."""
+    from repro_torch.utils.trees import tree_leaves
+    runs = spawn("step", 8, pathlib.Path(tmp))[0]
+    for case in STEP_CASES:
+        got, arch, mb = runs[case], case[0], case[2]
+        if arch in GRADS_ONLY:
+            loss, grads, move = single_process_grads(arch)
+            err = max(rel(a, b) for a, b in zip(got["grads"], grads))
+            what = (f"first-step gradients {err:.3g} (move {move:.3g}), "
+                    f"loss {abs(got['loss0'] - loss) / abs(loss):.3g}")
+        else:
+            p, losses, move, lmove = single_process(arch, mb, *case[3:])
+            err = max(rel(a, b) for a, b in zip(tree_leaves(got["params"]),
+                                                tree_leaves(p)))
+            lerr = max(abs(a - b) / abs(b)
+                       for a, b in zip(got["losses"], losses))
+            what = (f"parameters {err:.3g} (move {move:.3g}), losses "
+                    f"{lerr:.3g} (move {lmove:.3g})")
+        print(f"{case_id(case)}: {what}; {got['wall_s']:.2f} s")
+
+
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    # python tests/_torch_dist.py readings <dir>: the step job's readings
+    if sys.argv[1] == "readings":
+        readings(sys.argv[2])
+    else:
+        main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -286,33 +286,6 @@ def sharded_runs(tmp_path_factory):
     return D.spawn("step", 8, tmp_path_factory.mktemp("step"))[0]
 
 
-def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-
-
-@functools.lru_cache(maxsize=None)
-def _single_process(arch: str, mb: int, *cf):
-    """The single-process step's parameters and losses after the job's
-    steps, and its one-ulp moves: the largest relative change of a leaf
-    and of a loss when every parameter moves one ulp."""
-    from repro_torch.optimizer.adamw import adamw_init
-    from repro_torch.utils.trees import tree_map
-    cfg, opt_cfg, params, batch = D.step_setup(arch, *cf)
-    step = TST.make_train_step(cfg, opt_cfg, microbatches=mb, warmup_steps=0,
-                               total_steps=D.STEP_COUNT)
-    p, _, losses = D.run_steps(step, params, adamw_init(params, opt_cfg),
-                               batch)
-    g = torch.Generator().manual_seed(7)
-    inf = torch.tensor(float("inf"))
-    nudged = tree_map(lambda x: torch.nextafter(
-        x, torch.where(torch.rand(x.shape, generator=g) < 0.5, inf, -inf)),
-        params)
-    pu, _, lu = D.run_steps(step, nudged, adamw_init(nudged, opt_cfg), batch)
-    move = max(_rel(a, b) for a, b in zip(tree_leaves(pu), tree_leaves(p)))
-    lmove = max(abs(a - b) / abs(b) for a, b in zip(lu, losses))
-    return p, losses, move, lmove
-
-
 @pytest.mark.parametrize("case", D.STEP_CASES, ids=D.case_id)
 def test_sharded_step_matches_single_process(sharded_runs, case):
     """Loss and every parameter after 3 steps within ``bound(1e-5,
@@ -322,15 +295,30 @@ def test_sharded_step_matches_single_process(sharded_runs, case):
     expert-parallel: each rank keeps E / model experts, and the step
     launched the expert region's collectives.  Where a rank's rows, or
     a micro-batch's, are masked whole, the aux loss still counts once
-    (a rank's weight is 0 only where it holds no unmasked row)."""
+    (a rank's weight is 0 only where it holds no unmasked row).  Every
+    case is tensor-parallel over ``model`` where a sublayer's dim
+    divides: no leaf the split reads by its chunk is gathered over
+    ``model``, and in the dense cases each layer's split sublayers run
+    their collectives the expected number of times.  For the archs of
+    ``D.GRADS_ONLY`` the first step's loss (rtol 1e-5) and gradients
+    (``bound(1e-5, move)`` of the gradients' own one-ulp move) are held
+    instead of the parameters after the steps."""
     arch, (sizes, names), mb = case[:3]
     got = sharded_runs[case]
-    p, losses, move, lmove = _single_process(arch, mb, *case[3:])
-    tol, ltol = bound(1e-5, move), bound(1e-5, lmove)
-    for a, b in zip(tree_leaves(got["params"]), tree_leaves(p)):
-        assert a.shape == b.shape and _rel(a, b) < tol
-    for a, b in zip(got["losses"], losses):
-        assert abs(a - b) <= ltol * abs(b)
+    if arch in D.GRADS_ONLY:
+        loss, grads, gmove = D.single_process_grads(arch)
+        gtol = bound(1e-5, gmove)
+        assert abs(got["loss0"] - loss) <= 1e-5 * abs(loss)
+        for a, b in zip(got["grads"], grads):
+            assert a.shape == b.shape and D.rel(a, b) < gtol
+    else:
+        p, losses, move, lmove = D.single_process(arch, mb, *case[3:])
+        tol, ltol = bound(1e-5, move), bound(1e-5, lmove)
+        for a, b in zip(tree_leaves(got["params"]), tree_leaves(p)):
+            assert a.shape == b.shape and D.rel(a, b) < tol
+        for a, b in zip(got["losses"], losses):
+            assert abs(a - b) <= ltol * abs(b)
+    p = got["params"]
     # the state lay as shards: tok_emb [vocab, d] over (model, data)
     size = dict(zip(names, sizes))
     full = tuple(p["tok_emb"].shape)
@@ -347,6 +335,30 @@ def test_sharded_step_matches_single_process(sharded_runs, case):
     if len(case) > 3 and case[3] is not None:
         # drops fall on a batch rank after the first
         assert any(n > 0 for coord, n in got["drops"] if coord["data"] > 0)
+    # tensor parallelism over model: no leaf that the split reads by its
+    # chunk is gathered over model
+    from repro_torch.models import model as TM
+    from repro_torch.models.attention import attention_split
+    from repro_torch.models.layers import tree_paths
+    cfg = D.step_setup(arch, *case[3:])[0]
+    m, s = size["model"], D.STEP_SEQ
+    reads = TM.tp_reads(cfg, m, s, cfg.encoder_seq if cfg.is_encdec else 0)
+    split = {"/".join(path) for path, r in tree_paths(reads)
+             if isinstance(r, int)}
+    assert split and not split & set(got["gathered"].get("model", ()))
+    if cfg.family == "dense":
+        # a micro-batch sums the input gradient of each layer's
+        # attention and MLP and of the head once (region-in), their
+        # outputs and the embedding's at least once (region-out; the
+        # remat's recompute may run the attention's again), or gathers
+        # the attention's query rows (seq-all-gather)
+        per, n = D.STEP_COUNT * mb, cfg.n_layers
+        heads = attention_split(cfg, m, s) == "heads"
+        assert kinds["region-in"]["count"] == per * (2 * n + 1)
+        once = per * ((2 if heads else 1) * n + 1)
+        assert once <= kinds["region-out"]["count"] <= once + per * n
+        if not heads:
+            assert per * n <= kinds["seq-all-gather"]["count"] <= 2 * per * n
 
 
 def test_meshes():

@@ -1,6 +1,7 @@
 """``python -m repro_torch.launch.dryrun`` on the CPU: the smollm-360m
 train_4k cell on the (16, 16) mesh (one rank's sharded step on fake
-tensors over a fake 256-rank world) and a skipped long_500k cell; the
+tensors over a fake 256-rank world, tensor-parallel over ``model``:
+at most 3.4e13 flops a rank) and a skipped long_500k cell; the
 per-device bytes equal the reference's ``NamedSharding.shard_shape``
 sums over its abstract leaves; a second run without ``--force`` keeps
 the cells written.  The MoE family's llama4-scout train_4k cell runs
@@ -58,6 +59,13 @@ def test_dryrun_cells(tmp_path):
         mem["param_bytes"] + mem["opt_state_bytes"]
     assert cell["fits_80gb"] is True
     assert cell["probe"]["units"] == jc.n_layers
+    # tensor-parallel over model: the MLPs, the q / o projections, the
+    # scores and the logits split 16 ways (the k / v projections stay
+    # whole under the query-sequence split); the whole layers read
+    # 2.74e14 flops a rank
+    assert cell["flops"] <= 3.4e13
+    assert {"region-in", "region-out", "seq-all-gather", "max-all-reduce",
+            "loss-all-reduce"} <= set(colls)
 
     # smollm is full attention: its 500k decode cell is skipped
     assert dryrun.main(["--arch", "smollm-360m", "--shape", "long_500k",
