@@ -305,6 +305,33 @@ Phases, each of which raises (exit code not 0) on any failure:
                 sublayer's own move under one ulp of its inputs, at most
                 1e-3) of the whole sublayer's; (c) the EmApprox kernel
                 counts read 0.
+ 23. SSM, cross, serving — the rest of the ``model`` split, and the
+                sharded prefill and decode: (a) on its own one-rank NCCL
+                group, mamba2-780m at full width, phase 20's 8 x 256
+                batch: ``make_sharded_grads`` (its ``TPShard`` reaching
+                every SSM) equal to ``_value_and_grad`` bit for bit, no
+                collective, both walls; (b) with no process group, each
+                rank's partial of layer 0 at full width, fp32, 8 x 256:
+                mamba2's SSM at 16 ranks (heads), hymba's hybrid mixer
+                (attention by query rows, SSM by heads, mixed in float32)
+                at 2 in lockstep, the VLM's first cross-attention at 16
+                (decoder rows, 1601 vision tokens) and Whisper's first
+                decoder cross-attention at 4 (heads): the output and the
+                input, ``enc`` and weight gradients joined within
+                ``run_bound`` of the whole sublayer's; (c) on the NCCL
+                group, ``make_prefill_step`` / ``make_decode_step`` with
+                the mesh for smollm-360m and mamba2-780m at phase 18's
+                shapes (batch 4, prompt 64 and 320, 32 tokens, the
+                unsharded greedy tokens fed to both): logits and the
+                placed state bit for bit the unsharded ``prefill`` /
+                ``decode_step``'s, walls of both; (d) with no process
+                group, context-parallel decode at full width: smollm's
+                layer 0 against a 2048-slot cache split 16 ways in
+                lockstep, at a length where ranks 8-15 hold no valid
+                slot and at a full cache, and mamba2 layer 0's decode
+                state split by heads over 16 ranks, joined, within
+                ``run_bound`` of the whole; (e) the EmApprox kernel
+                counts read 0 (path ``serve_mesh``).
 
 Each of the main paths (serving, megascan, top-k, their sym
 counterparts, training, k-means, the offline build, ingest, the stack
@@ -312,8 +339,8 @@ and recommendation) is driven with the launch counters set to 0 just
 before it and read just after; each of its kernels must have launched,
 and launches made only to hold one route against another are left out.
 The LM serving path (phase 18), the MoE path (phase 21) and the
-tensor-parallel path (phase 22) have no kernel: their counts must read
-0; the LM training paths (phases 19 and
+tensor-parallel paths (phases 22 and 23) have no kernel: their counts
+must read 0; the LM training paths (phases 19 and
 20) launch rows 1 and 11.
 Row 5 runs on four paths (the sym batch, the shard-granular planning,
 the sym top-k, recommendation): its record's ``launches`` is the sym
@@ -3466,7 +3493,8 @@ def mesh_train(dev: torch.device, kernels: list):
     return run
 
 
-MESH_TIMED = 10             # (c): timed pairs, the first side alternating
+MESH_TIMED = 5              # (c): timed pairs, the first side alternating
+                            # (10 until phase 23 took their time)
 
 
 def sharded_vs_plain(dev: torch.device, mesh, run) -> None:
@@ -4174,6 +4202,393 @@ def tp_phase(dev: torch.device, args, kernels: list) -> None:
         f"wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 23: the SSM and cross-attention over ``model``, sharded serving
+# ----------------------------------------------------------------------
+SP_ARCH = "mamba2-780m"
+# (b): (arch, ranks, sublayer of layer 0), full width, each rank's part
+SP_SPLITS = (("mamba2-780m", 16, "ssm"), ("hymba-1.5b", 2, "hybrid"),
+             ("llama-3.2-vision-11b", 16, "cross"),
+             ("whisper-small", 4, "cross"))
+CP_SLOTS, CP_RANKS, CP_BATCH = 2048, 16, 8   # (d)
+CP_LENGTHS = (1000, CP_SLOTS - 1)  # (d): ranks 8-15 empty; a full cache
+
+
+def sp_full_grads(dev: torch.device, mesh, seed: int) -> None:
+    """(a): mamba2-780m at full width, phase 20's batch with part of a
+    row masked: ``make_sharded_grads`` on the one-rank mesh, its
+    ``TPShard`` of one rank passed to every SSM, equal to the unsharded
+    ``_value_and_grad`` bit for bit, no collective."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import TPShard
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config(SP_ARCH)
+    params = M.init_stacked_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    batch = fixed_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 5, dev)
+    batch["mask"][1, TRAIN_SEQ // 2:] = 0.0
+    ST._value_and_grad(params, fixed_batch(cfg, 1, 16, 9, dev), cfg)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    loss_u, g_u = ST._value_and_grad(params, batch, cfg)
+    torch.cuda.synchronize(dev)
+    wall_u = time.perf_counter() - t
+    want = tree_leaves(g_u)
+    placed = place_tree(params, ST.params_shardings(cfg, mesh))
+    grads = ST.make_sharded_grads(cfg, mesh)
+    seen = []
+    ssm_apply = ssm_mod.ssm_apply
+
+    def spy(*args, **kw):
+        seen.append(kw.get("tp", args[4] if len(args) > 4 else None))
+        return ssm_apply(*args, **kw)
+    ssm_mod.ssm_apply = spy
+    try:
+        t = time.perf_counter()
+        loss_s, g_s = grads(placed, batch)
+        torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t
+    finally:
+        ssm_mod.ssm_apply = ssm_apply
+    if not seen or any(not isinstance(tp, TPShard) or tp is not grads.tp
+                       for tp in seen):
+        raise AssertionError(f"(a) the sharded step did not pass its "
+                             f"one-rank TPShard to the SSM: {seen[:3]}")
+    require_finite(loss_s, "(a) loss")
+    if not (torch.equal(loss_s, loss_u) and len(g_s) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(g_s, want))):
+        raise AssertionError("(a) the sharded loss and gradients are not "
+                             "the unsharded ones bit for bit")
+    if grads.collectives.kinds:
+        raise AssertionError(f"(a) a one-rank mesh launched "
+                             f"{grads.collectives.kinds}")
+    log(f"   (a) {SP_ARCH} at full width, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"make_sharded_grads, its one-rank TPShard reaching the SSM "
+        f"{len(seen)} times, equal to the unsharded loss "
+        f"({float(loss_s):.6f}) and all {len(want)} gradient leaves bit "
+        f"for bit, no collective launched; walls unsharded {wall_u:.3f} s, "
+        f"sharded {wall_s:.3f} s")
+    del params, placed, g_u, g_s, want
+    torch.cuda.empty_cache()
+
+
+def tp_lockstep(fn, p: dict, x: torch.Tensor, ct: torch.Tensor, m: int,
+                whole=()):
+    """``m`` ranks of ``fn(p, x, tp)`` in lockstep (``testing.lockstep``):
+    (output, [input gradient, weight gradients]), the output every
+    rank's (they must be equal), the gradients summed over the ranks but
+    for the leaves named in ``whole``, which every rank computes whole
+    (rank 0's)."""
+    from repro_torch.testing import lockstep
+    ins = [[a.detach().requires_grad_(True) for a in [x] + list(p.values())]
+           for _ in range(m)]
+    outs = lockstep(lambda tp: fn(dict(zip(p, ins[tp.rank][1:])),
+                                  ins[tp.rank][0], tp), m)
+    if any(not torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("the lockstep ranks' outputs differ")
+    per = [torch.autograd.grad(o, i, ct) for o, i in zip(outs, ins)]
+    names = ["x"] + list(p)
+    grads = [per[0][j] if n in whole else sum(g[j] for g in per)
+             for j, n in enumerate(names)]
+    return outs[0].detach(), grads
+
+
+def sp_ranks(dev: torch.device, seed: int) -> None:
+    """(b): each rank's part of layer 0's SSM, hybrid mixer or
+    cross-attention at full width with no process group, joined and
+    held against the whole sublayer's (``tp_hold``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models.attention import (attention_split,
+                                              cross_attention_apply)
+    from repro_torch.models.config import DTypePolicy
+    from repro_torch.models.layers import materialize
+    from repro_torch.models.ssm import ssm_apply, ssm_split
+
+    fp32 = DTypePolicy("float32", "float32", "float32")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    positions = torch.arange(s, device=dev)
+    for arch, m, what in SP_SPLITS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), dtypes=fp32)
+        g = torch.Generator(device=dev).manual_seed(seed + m)
+        whole = ()
+        if what == "ssm":
+            split = ssm_split(cfg, m)
+            p = materialize(blocks.ssm_defs(cfg), g, torch.float32, dev)
+
+            def fn(q, h, tp):
+                return ssm_apply(q, h, cfg, tp=tp)[0]
+        elif what == "hybrid":
+            split = f"attention {attention_split(cfg, m, s)}, SSM " \
+                f"{ssm_split(cfg, m)}"
+            defs = blocks.block_defs(cfg, "hybrid")
+            p = {"attn": defs["attn"], "ssm": defs["ssm"], "mix": defs["mix"]}
+            p = materialize(p, g, torch.float32, dev)
+            # flat names ("attn/wq", "mix"): each leaf one entry of p
+            p = {f"{k}/{n}": v for k, sub in p.items() if k != "mix"
+                 for n, v in sub.items()} | {
+                "mix": p["mix"] + torch.randn(2, generator=g, device=dev)}
+            whole = ("mix",)
+
+            def fn(q, h, tp):
+                tree = {"attn": {}, "ssm": {}, "mix": q["mix"]}
+                for k, v in q.items():
+                    if "/" in k:
+                        top, n = k.split("/")
+                        tree[top][n] = v
+                return blocks.hybrid_mixer(tree, h, cfg, positions=positions,
+                                           tp=tp)[0]
+        else:
+            split = attention_split(cfg, m, s)
+            t_enc = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+            cross = blocks.cross_defs(cfg)
+            p = materialize({k: cross[k] for k in ("wq", "wk", "wv", "wo")},
+                            g, torch.float32, dev)
+            p["enc"] = torch.randn((b, t_enc, cfg.d_model), generator=g,
+                                   device=dev)
+
+            def fn(q, h, tp):
+                w = {k: v for k, v in q.items() if k != "enc"}
+                return cross_attention_apply(w, h, q["enc"], cfg=cfg, tp=tp)
+        x = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        ct = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        names = ["output", "input gradient"] + [f"d{k}" for k in p]
+        if what == "hybrid":
+            out, gr = tp_lockstep(fn, p, x, ct, m, whole)
+        else:
+            out, gr = tp_join(fn, p, x, ct, m, split == "seq")
+        w_out, w_gr = tp_whole(fn, p, x, ct)
+        moved = nudged([x] + list(p.values()), seed + 7)
+        u_out, u_gr = tp_whole(fn, dict(zip(p, moved[1:])), moved[0], ct)
+        e_out, e_gr = tp_whole(fn, p, x, ct, torch.float64)
+        reading = tp_hold(f"{arch}, {m} ranks, {what}", names, [out] + gr,
+                          [w_out] + w_gr, [u_out] + u_gr, [e_out] + e_gr)
+        torch.cuda.synchronize(dev)
+        log(f"   (b) {arch} layer 0 {what} at full width, {m} ranks "
+            f"({split} split), {b} x {s}: the output and every gradient "
+            f"joined from the ranks' parts within twice the whole one's "
+            f"own move; worst (error / bound): {reading}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del p, out, gr, w_out, w_gr, u_out, u_gr, e_out, e_gr, moved
+        torch.cuda.empty_cache()
+
+
+def serve_on_mesh(dev: torch.device, mesh, seed: int) -> None:
+    """(c): the sharded prefill and decode steps on the one-rank mesh
+    against the unsharded ``prefill`` / ``decode_step`` at phase 18's
+    shapes, the unsharded greedy tokens fed to both: logits and the
+    state bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import full_tree, place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.utils.trees import tree_leaves
+
+    for arch, prompt in LM_FULL:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        stacked = M.init_stacked_params(cfg, gen, dev)
+        views = M._unstack_params(stacked)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt),
+                             generator=gen, device=dev)
+        max_len = prompt + LM_GEN
+
+        def run(prefill, decode, params, state, feed=None):
+            """(logits of each call, greedy tokens, state, prefill s,
+            decode s a token)."""
+            logits, fed = [], []
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out, state = prefill(params, toks, state)
+            torch.cuda.synchronize(dev)
+            pre = time.perf_counter() - t
+            logits.append(out)
+            t = time.perf_counter()
+            for i in range(LM_GEN - 1):
+                nxt = out.argmax(-1, keepdim=True) if feed is None \
+                    else feed[i]
+                fed.append(nxt)
+                out, state = decode(params, nxt, state)
+                logits.append(out)
+            torch.cuda.synchronize(dev)
+            return logits, fed, state, pre, \
+                (time.perf_counter() - t) / (LM_GEN - 1)
+        with torch.no_grad():
+            want, fed, w_state, w_pre, w_dec = run(
+                ST.make_prefill_step(cfg), ST.make_decode_step(cfg), views,
+                M.init_decode_state(cfg, LM_BATCH, max_len, device=dev))
+            placed = place_tree(stacked, ST.params_shardings(cfg, mesh,
+                                                             serve=True))
+            sh = ST.decode_state_shardings(
+                cfg, mesh, ST.abstract_decode_state(cfg, LM_BATCH, max_len,
+                                                    False), LM_BATCH)
+            pre_step = ST.make_prefill_step(cfg, mesh)
+            dec_step = ST.make_decode_step(cfg, mesh)
+            got, _, g_state, g_pre, g_dec = run(
+                pre_step, dec_step, placed, place_tree(
+                    M.init_decode_state(cfg, LM_BATCH, max_len, device=dev),
+                    sh), fed)
+        for a, b_ in zip(got, want):
+            require_finite(a, f"(c) {arch} logits")
+        if not (len(got) == len(want) and all(
+                torch.equal(a, b_) for a, b_ in zip(got, want))):
+            raise AssertionError(f"(c) {arch}: the sharded serving logits "
+                                 f"are not the unsharded ones bit for bit")
+        g_state = full_tree(g_state)
+        if g_state.length != w_state.length or not all(
+                torch.equal(a, b_) for a, b_ in
+                zip(tree_leaves(g_state), tree_leaves(w_state))
+                if isinstance(a, torch.Tensor)):
+            raise AssertionError(f"(c) {arch}: the sharded serving state "
+                                 f"is not the unsharded one bit for bit")
+        kinds = {**pre_step.collectives.kinds, **dec_step.collectives.kinds}
+        if kinds:
+            raise AssertionError(f"(c) a one-rank mesh launched {kinds}")
+        log(f"   (c) {arch} at full width, batch {LM_BATCH}, prompt "
+            f"{prompt}, {LM_GEN} tokens, compute {cfg.dtypes.compute}: "
+            f"make_prefill_step / make_decode_step on the mesh equal to the "
+            f"unsharded prefill / decode_step bit for bit (all {len(got)} "
+            f"logits and the state), no collective launched; prefill "
+            f"{w_pre * 1e3:.3f} ms unsharded, {g_pre * 1e3:.3f} ms sharded; "
+            f"decode {w_dec * 1e3:.3f} / {g_dec * 1e3:.3f} ms a token "
+            f"(first calls, mean of {LM_GEN - 1})")
+        del stacked, views, placed, want, got, w_state, g_state
+        torch.cuda.empty_cache()
+
+
+def cp_decode(dev: torch.device, seed: int) -> None:
+    """(d): context-parallel decode at full width with no process
+    group: smollm's layer 0 self-attention against a ``CP_SLOTS``-slot
+    cache split over ``CP_RANKS`` lockstep ranks, and mamba2's layer 0
+    SSM decode state split by heads, joined, held against the whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import TPShard
+    from repro_torch.models import blocks
+    from repro_torch.models.attention import KVCache, attention_apply
+    from repro_torch.models.config import DTypePolicy
+    from repro_torch.models.layers import materialize
+    from repro_torch.models.ssm import SSMState, init_ssm_state, ssm_apply
+    from repro_torch.testing import lockstep
+
+    fp32 = DTypePolicy("float32", "float32", "float32")
+    cfg = dataclasses.replace(get_config(TP_ARCH), dtypes=fp32)
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    p = materialize(blocks.attn_defs(cfg), g, torch.float32, dev)
+    shape = (CP_BATCH, CP_SLOTS, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.randn(shape, generator=g, device=dev)
+    v = torch.randn(shape, generator=g, device=dev)
+    x = torch.randn((CP_BATCH, 1, cfg.d_model), generator=g, device=dev)
+    n = CP_SLOTS // CP_RANKS
+    for length in CP_LENGTHS:
+        pos = torch.where(torch.arange(CP_SLOTS, device=dev) < length,
+                          torch.arange(CP_SLOTS, device=dev), -1) \
+            .to(torch.int32)
+        positions = torch.arange(length, length + 1, device=dev)
+
+        def whole(q, h, kk, vv):
+            return attention_apply(q, h, cfg=cfg, positions=positions,
+                                   cache=KVCache(kk.clone(), vv.clone(), pos,
+                                                 length))[0]
+
+        def rank(tp):
+            r = tp.rank
+            chunk = KVCache(k[:, r * n:(r + 1) * n].clone(),
+                            v[:, r * n:(r + 1) * n].clone(), pos, length)
+            return attention_apply(p, x, cfg=cfg, positions=positions,
+                                   cache=chunk, tp=tp)[0]
+        outs = lockstep(rank, CP_RANKS)
+        if any(not torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError("(d) the lockstep ranks' outputs differ")
+        want = whole(p, x, k, v)
+        mv = nudged([x, k, v] + list(p.values()), seed + 29)
+        moved = whole(dict(zip(p, mv[3:])), *mv[:3])
+        exact = whole({a: w.double() for a, w in p.items()}, x.double(),
+                      k.double(), v.double())
+        empty = [r for r in range(CP_RANKS) if int(pos[r * n]) < 0]
+        reading = tp_hold(f"smollm decode at length {length}", ["output"],
+                          [outs[0]], [want], [moved], [exact])
+        log(f"   (d) {TP_ARCH} layer 0 decode at length {length} against a "
+            f"{CP_SLOTS}-slot cache split over {CP_RANKS} ranks ({n} slots "
+            f"a rank; ranks {empty[0] if empty else '-'}"
+            f"{'-' + str(empty[-1]) if len(empty) > 1 else ''} hold no valid "
+            f"slot), the softmax joined by log-sum-exp: {reading}")
+
+    cfg = dataclasses.replace(get_config(SP_ARCH), dtypes=fp32)
+    p = materialize(blocks.ssm_defs(cfg), g, torch.float32, dev)
+    x0 = torch.randn((CP_BATCH, 64, cfg.d_model), generator=g, device=dev)
+    x1 = torch.randn((CP_BATCH, 1, cfg.d_model), generator=g, device=dev)
+    st = ssm_apply(p, x0, cfg, init_ssm_state(CP_BATCH, cfg, torch.float32,
+                                              dev))[1]
+    hl, dl = cfg.ssm_heads // CP_RANKS, cfg.d_inner // CP_RANKS
+
+    def one_step(q, h, state):
+        return ssm_apply(q, h, cfg, SSMState(state.state.clone(),
+                                             state.conv.clone()))
+    w_out, w_st = one_step(p, x1, st)
+    outs, sts = [], []
+    for r in range(CP_RANKS):
+        chunk = SSMState(st.state[:, r * hl:(r + 1) * hl].clone(),
+                         st.conv[..., r * dl:(r + 1) * dl].clone())
+        o, s1 = ssm_apply(p, x1, cfg, chunk,
+                          tp=TPShard.simulated(r, CP_RANKS))
+        outs.append(o)
+        sts.append(s1)
+    got = [sum(outs[1:], outs[0]), torch.cat([a.state for a in sts], 1),
+           torch.cat([a.conv for a in sts], 2)]
+    mv = nudged([x1] + list(p.values()), seed + 31)
+    u_out, u_st = one_step(dict(zip(p, mv[1:])), mv[0], st)
+    # the SSD keeps its state and step math in float32 (``.float()``)
+    e_out, e_st = one_step({a: w.double() for a, w in p.items()},
+                           x1.double(), SSMState(st.state, st.conv.double()))
+    reading = tp_hold("mamba2 decode state", ["output", "state", "conv"],
+                      got, [w_out, w_st.state, w_st.conv],
+                      [u_out, u_st.state, u_st.conv],
+                      [e_out, e_st.state, e_st.conv])
+    torch.cuda.synchronize(dev)
+    log(f"   (d) {SP_ARCH} layer 0 decode step after 64 tokens, its state "
+        f"split over {CP_RANKS} ranks ({hl} heads, {dl} conv channels a "
+        f"rank): the summed output and the joined state within twice the "
+        f"whole one's own move; worst {reading}")
+
+
+def serve_phase_mesh(dev: torch.device, args, kernels: list) -> None:
+    """Phase 23 (module docstring).  It launches no kernel of the
+    record: the counts are zeroed before it and must read 0 after
+    (recorded as path ``serve_mesh``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    names = list(KERNEL_MODULES)
+    zero_counts(names)
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before phase 23")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+        sp_full_grads(dev, mesh, args.seed)
+        serve_on_mesh(dev, mesh, args.seed)
+    finally:
+        dist.destroy_process_group()
+    sp_ranks(dev, args.seed)
+    cp_decode(dev, args.seed)
+    counts = read_counts(names)
+    launched = {n: c for n, c in counts.items() if c}
+    if launched:
+        raise AssertionError(f"the phase 23 paths launched kernels: "
+                             f"{launched}")
+    add_path(kernels, "serve_mesh", counts)
+    log(f"   (e) EmApprox kernel launches on the path: {counts}; phase 23 "
+        f"wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4267,6 +4682,13 @@ def main(argv=None) -> int:
         f"mesh, each rank's partials at "
         f"{', '.join(f'{a} m={m}' for a, m, _ in TP_SPLITS)}")
     tp_phase(dev, args, kernels)
+    log(f"== the SSM, cross-attention and serving over model on {card}: "
+        f"{SP_ARCH} at full width through the sharded step, each rank's "
+        f"part at {', '.join(f'{a} m={m}' for a, m, _ in SP_SPLITS)}, the "
+        f"sharded prefill and decode of "
+        f"{', '.join(a for a, _ in LM_FULL)} on a one-rank NCCL mesh, "
+        f"context-parallel decode over {CP_RANKS} ranks")
+    serve_phase_mesh(dev, args, kernels)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

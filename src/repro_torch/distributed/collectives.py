@@ -1,5 +1,5 @@
-"""The sharded train step's collectives, run explicitly where GSPMD
-inserts them for the JAX package.
+"""The sharded steps' collectives (training, prefill and decode), run
+explicitly where GSPMD inserts them for the JAX package.
 
 The training state lies as shards (``launch/steps.params_shardings``);
 the model computes on plain tensors.  ``MeshAxes`` holds a
@@ -24,10 +24,16 @@ statistics; ``all_gather_axes`` stacks the per-rank routing counts.
 
 Tensor parallelism over ``model`` (``TPShard``) runs the same pair around
 each split sublayer (a column-split matmul after ``region_in``, a
-row-split one before ``region_out``), and two more: ``seq_all_gather``
-(all-gather forward, this rank's slice backward) joins a query-sequence
-split attention's output rows, and ``max_all_reduce`` (no gradient) is
-the vocabulary-parallel loss's max.
+row-split one before ``region_out``): the self- and cross-attention
+(heads), the SSM (heads), the MLPs (``d_ff``).  Two more:
+``seq_all_gather`` (all-gather forward, this rank's slice backward)
+joins a query-row split attention's output rows, and ``max_all_reduce``
+(no gradient) is the vocabulary-parallel loss's max.  Serving adds
+kinds of their own on the same functions: the context-parallel decode's
+``decode-max`` / ``decode-sum`` / ``decode-out`` (its log-sum-exp
+join), ``logits-all-gather`` (the logits made whole) and
+``state-all-gather`` (a split SSM state leaf gathered for a mixer that
+computes whole).
 
 An axis of size 1 launches nothing.
 """
@@ -182,16 +188,16 @@ class _RegionOut(torch.autograd.Function):
 
 class _SeqAllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes: MeshAxes, names, dim):
+    def forward(ctx, x, axes: MeshAxes, names, dim, kind):
         ctx.dim, ctx.n = dim, x.shape[dim]
         ctx.first = axes.linear_rank(names) * ctx.n
         for a in reversed(names):
-            x = axes.all_gather(x, dim, a, "seq-all-gather")
+            x = axes.all_gather(x, dim, a, kind)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.first, ctx.n), None, None, None
+        return g.narrow(ctx.dim, ctx.first, ctx.n), None, None, None, None
 
 
 class _StatAllReduce(torch.autograd.Function):
@@ -229,21 +235,21 @@ def stat_all_reduce(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
     return _StatAllReduce.apply(x, axes, names) if names else x
 
 
-def seq_all_gather(x: torch.Tensor, axes: MeshAxes, names,
-                   dim: int) -> torch.Tensor:
+def seq_all_gather(x: torch.Tensor, axes: MeshAxes, names, dim: int,
+                   kind: str = "seq-all-gather") -> torch.Tensor:
     """The ranks' ``x`` of ``names`` concatenated along ``dim`` in
     ``linear_rank(names)`` order; the gradient of the whole is this
     rank's slice of it (every rank of ``names`` holds it whole)."""
     names = axes.live(names)
-    return _SeqAllGather.apply(x, axes, names, dim) if names else x
+    return _SeqAllGather.apply(x, axes, names, dim, kind) if names else x
 
 
-def max_all_reduce(x: torch.Tensor, axes: MeshAxes, names) -> torch.Tensor:
+def max_all_reduce(x: torch.Tensor, axes: MeshAxes, names,
+                   kind: str = "max-all-reduce") -> torch.Tensor:
     """The elementwise max of ``x`` over ``names``, with no gradient."""
     names = axes.live(names)
     x = x.detach()
-    return axes.summed(x, names, "max-all-reduce", dist.ReduceOp.MAX) \
-        if names else x
+    return axes.summed(x, names, kind, dist.ReduceOp.MAX) if names else x
 
 
 class TPShard(NamedTuple):
@@ -297,13 +303,15 @@ class TPShard(NamedTuple):
         return region_out(x, self.axes, self.names, kind) \
             if self.names else x
 
-    def seq_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return seq_all_gather(x, self.axes, self.names, dim) \
+    def seq_gather(self, x: torch.Tensor, dim: int,
+                   kind: str = "seq-all-gather") -> torch.Tensor:
+        return seq_all_gather(x, self.axes, self.names, dim, kind) \
             if self.names else x
 
-    def max(self, x: torch.Tensor) -> torch.Tensor:
-        return max_all_reduce(x, self.axes, self.names) if self.names \
-            else x.detach()
+    def max(self, x: torch.Tensor, kind: str = "max-all-reduce"
+            ) -> torch.Tensor:
+        return max_all_reduce(x, self.axes, self.names, kind) \
+            if self.names else x.detach()
 
 
 NO_TP = TPShard()

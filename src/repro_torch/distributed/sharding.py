@@ -307,10 +307,13 @@ def place_tree(tree, shardings):
     ``NamedSharding`` in the same place of ``shardings`` (no
     communication: each rank holds the whole tensor and keeps its
     shard).  A subtree where ``shardings`` holds one sharding (a q8
-    moment's codes and scales) is replicated."""
+    moment's codes and scales) is replicated; a leaf that is no tensor
+    (a decode state's ``length``, the host's count) stays as it is."""
     from torch.distributed.tensor import Replicate, distribute_tensor
 
     def place(x, sh):
+        if isinstance(x, (int, float)):
+            return x
         if not isinstance(x, (tuple, list, dict)):
             return distribute_tensor(x, sh.mesh, sh.placements,
                                      src_data_rank=None)

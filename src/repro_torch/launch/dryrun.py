@@ -14,28 +14,33 @@ status ok or skipped is not run again unless ``--force``):
     (train), the batch or tokens, and the decode state (serve), each
     the sum over the legalized trees' leaves of their ``shard_shape``
     (shape arithmetic on an ``AbstractMesh``);
-  * for train cells, ``probe``: one rank's local sharded step
-    (``launch/steps.make_train_step(mesh=)``) run on rank 0 of a fake
+  * ``probe``: one rank's local sharded step run on rank 0 of a fake
     world of the mesh's size under ``FakeTensorMode`` (nothing is
     allocated, no collective moves data): its flops
     (``FlopCounterMode``), its peak live bytes (the storages its ops
     create, the local state included) and the collectives it launches
-    by kind (count, bytes).  The step splits the batch over the batch
-    axes and computes tensor-parallel over ``model``: each
-    self-attention by heads (or, where the head counts do not divide
-    ``model``, by query rows, the K/V projections whole), the MLPs over
-    ``d_ff``, the embedding, head and loss over ``vocab``, the MoE's
-    experts over ``model``, each where its dim divides; the norms, the
-    SSM, the cross-attention and the MoE router run whole on every
-    ``model`` rank.  The reference's two-point depth probe:
-    the step at 1 and 2 layer units (``_probe_cfg``), total = outer +
-    units x per unit (``_layer_units``).  Where the fake run raises,
-    the cell is an error;
-  * ``fits_80gb``: the train cell's peak live bytes (state included)
-    within one H100's 80 GB (80e9 bytes).
-
-The port has no sharded prefill or decode, so serve cells carry bytes
-only.
+    by kind (count, bytes).  Train cells run
+    ``launch/steps.make_train_step(mesh=)``: the batch split over the
+    batch axes, tensor-parallel over ``model``: each self- and
+    cross-attention by heads (or, where the head counts do not divide
+    ``model``, by query rows, the K/V projections whole), the SSM by
+    heads, the MLPs over ``d_ff``, the embedding, head and loss over
+    ``vocab``, the MoE's experts over ``model``, each where its dim
+    divides; the norms and the MoE router (replicated in the reference
+    too) run whole on every ``model`` rank, and so does whatever does
+    not divide.  Serve cells run ``make_prefill_step(mesh=)`` /
+    ``make_decode_step(mesh=)``: the parameters placed for serving (no
+    ``fsdp``), the state by ``decode_state_shardings``, the caches'
+    slots over ``model`` (context-parallel attention: a prefill splits
+    the query rows, a decode step scores its slots and joins them by
+    log-sum-exp), the rest split as in training; a decode cell at a
+    full cache (length ``seq_len - 1``), a prefill from an empty one.
+    The reference's two-point depth probe: the step at 1 and 2 layer
+    units (``_probe_cfg``), total = outer + units x per unit
+    (``_layer_units``).  Where the fake run raises, the cell is an
+    error;
+  * ``fits_80gb``: the cell's peak live bytes (state included) within
+    one H100's 80 GB (80e9 bytes).
 """
 from __future__ import annotations
 
@@ -157,26 +162,55 @@ def _fake_world(shape, names):
         dist.destroy_process_group()
 
 
+def _shards(shardings, abstract):
+    """``abstract``'s tree with each tensor a zero tensor of its shard
+    shape under the sharding in the same place (other leaves kept)."""
+    return tree_unflatten(abstract, [
+        torch.zeros(sh.shard_shape(tuple(a.shape)), dtype=a.dtype)
+        if isinstance(a, torch.Tensor) else a
+        for sh, a in zip(tree_leaves(shardings), tree_leaves(abstract))])
+
+
 def _local_step_costs(cfg, shape: str, mesh, microbatches: int) -> Dict:
     """Flops, peak live bytes and collectives of one rank's sharded
-    train step on fake tensors."""
+    step of the cell's kind on fake tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
-    opt_cfg = AdamWConfig(state_dtype=cfg.dtypes.opt_state)
-    step = ST.make_train_step(cfg, opt_cfg, microbatches=microbatches,
-                              mesh=mesh)
-    shardings = ST.params_shardings(cfg, mesh)
-    abstract = ST.abstract_params(cfg)
+    cell = S.SHAPES[shape]
     live = _LiveBytes()
     flops = FlopCounterMode(display=False)
-    with FakeTensorMode(), flops, live.mode():
-        params = tree_unflatten(abstract, [
-            torch.zeros(sh.shard_shape(tuple(a.shape)), dtype=a.dtype)
-            for sh, a in zip(tree_leaves(shardings), tree_leaves(abstract))])
-        opt_state = adamw_init(params, opt_cfg)
-        batch = {k: torch.zeros(v.shape, dtype=v.dtype)
-                 for k, v in S.train_input_specs(cfg, shape).items()}
-        step(params, opt_state, batch)
+    # the abstract trees (and the shardings, legalized against them)
+    # are built outside the modes: the live bytes would count their
+    # meta tensors' whole (unsharded) sizes
+    abstract = ST.abstract_params(cfg)
+    if cell.kind == "train":
+        opt_cfg = AdamWConfig(state_dtype=cfg.dtypes.opt_state)
+        step = ST.make_train_step(cfg, opt_cfg, microbatches=microbatches,
+                                  mesh=mesh)
+        shardings = ST.params_shardings(cfg, mesh)
+        with FakeTensorMode(), flops, live.mode():
+            params = _shards(shardings, abstract)
+            opt_state = adamw_init(params, opt_cfg)
+            batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+                     for k, v in S.train_input_specs(cfg, shape).items()}
+            step(params, opt_state, batch)
+    else:
+        prefill = cell.kind == "prefill"
+        step = (ST.make_prefill_step if prefill
+                else ST.make_decode_step)(cfg, mesh)
+        max_len = S.effective_max_len(cfg, shape)
+        astate = ST.abstract_decode_state(
+            cfg, cell.global_batch, max_len,
+            cfg.is_encdec or cfg.family == "vlm")
+        st_sh = ST.decode_state_shardings(cfg, mesh, astate,
+                                          cell.global_batch)
+        tok = S.serve_token_spec(cfg, shape)
+        shardings = ST.params_shardings(cfg, mesh, serve=True)
+        with FakeTensorMode(), flops, live.mode():
+            params = _shards(shardings, abstract)
+            state = _shards(st_sh, astate)._replace(
+                length=0 if prefill else max_len - 1)
+            step(params, torch.zeros(tok.shape, dtype=tok.dtype), state)
     return {"flops": float(flops.get_total_flops()),
             "peak_bytes": float(live.peak),
             "colls": step.collectives.kinds}
@@ -229,6 +263,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool) -> Dict:
     mem = {"param_bytes": tree_shard_bytes(ST.params_shardings(cfg, mesh),
                                            ST.abstract_params(cfg))}
     result["memory"] = mem
+    mb = 1
     if cell.kind == "train":
         mb = S.microbatches_for(cfg, shape)
         result["microbatches"] = mb
@@ -239,18 +274,6 @@ def run_cell(arch: str, shape: str, multi_pod: bool) -> Dict:
         mem["batch_bytes"] = tree_shard_bytes(
             ST.batch_shardings(cfg, mesh, cell.global_batch, with_enc),
             S.train_input_specs(cfg, shape))
-        try:
-            with _fake_world(sizes, names) as dmesh:
-                probe = cost_probe(cfg, shape, dmesh, mb)
-        except Exception as e:  # noqa: BLE001 - recorded in the cell
-            result.update(status="error", error=str(e),
-                          traceback=traceback.format_exc()[-2000:])
-            return result
-        result["probe"] = probe
-        result["collectives"] = probe["collectives"]
-        result["flops"] = probe["flops"]["total"]
-        result["peak_live_bytes"] = probe["peak_bytes"]["total"]
-        result["fits_80gb"] = probe["peak_bytes"]["total"] <= H100_BYTES
     else:
         astate = ST.abstract_decode_state(cfg, cell.global_batch,
                                           S.effective_max_len(cfg, shape),
@@ -262,9 +285,18 @@ def run_cell(arch: str, shape: str, multi_pod: bool) -> Dict:
         mem["token_bytes"] = tree_shard_bytes(
             [NamedSharding(mesh, P(ba if ba else None, None))],
             [S.serve_token_spec(cfg, shape)])
-        result["probe"] = None
-        result["collectives"] = {}
-        result["note"] = "the port has no sharded prefill or decode"
+    try:
+        with _fake_world(sizes, names) as dmesh:
+            probe = cost_probe(cfg, shape, dmesh, mb)
+    except Exception as e:  # noqa: BLE001 - recorded in the cell
+        result.update(status="error", error=str(e),
+                      traceback=traceback.format_exc()[-2000:])
+        return result
+    result["probe"] = probe
+    result["collectives"] = probe["collectives"]
+    result["flops"] = probe["flops"]["total"]
+    result["peak_live_bytes"] = probe["peak_bytes"]["total"]
+    result["fits_80gb"] = probe["peak_bytes"]["total"] <= H100_BYTES
     result["wall_s"] = round(time.time() - t0, 2)
     return result
 

@@ -2,8 +2,9 @@
 
 ``make_train_step`` builds loss -> grad -> (micro-batched accumulation)
 -> AdamW update; ``make_prefill_step`` / ``make_decode_step`` wrap the
-model's serving entry points.  The sharding trees map every argument to
-``NamedSharding``s derived from the logical rules, legalized so that
+model's serving entry points, sharded under a mesh.  The sharding trees
+map every argument to ``NamedSharding``s derived from the logical
+rules, legalized so that
 every split dim divides (``legalize_sharding``), so launch code never
 hand-writes specs per architecture.
 
@@ -18,22 +19,25 @@ plain tensors, with the collectives run explicitly
     ``batch_axes(mesh, b // mb)``;
   * the ``model`` axis runs tensor parallelism (``TPShard``, passed to
     ``M.loss_fn``), the reference's plan at its constraint sites: each
-    self-attention split by heads where both head counts divide the
-    axis, else by query rows (each rank its rows against every row's
-    K/V, the output rows gathered); each MLP over ``d_ff``; the
-    embedding, the head and the cross-entropy over ``vocab``, where
-    the dim divides.  The residual stream, the norms, the SSM, the
-    cross-attention and the MoE router are computed whole on every
-    ``model`` rank;
+    self- and cross-attention split by heads where both head counts
+    divide the axis, else by query (decoder) rows (each rank its rows
+    against every row's K/V, the output rows gathered); the SSM, and
+    hymba's SSM branch, by heads where its heads and ``in_proj``'s
+    width divide; each MLP over ``d_ff``; the embedding, the head and
+    the cross-entropy over ``vocab``, where the dim divides.  The
+    residual stream, the norms and the MoE router (replicated in the
+    reference too) are computed whole on every ``model`` rank;
   * each parameter is gathered where the forward reads it: the
     top-level leaves once a micro-batch, each layer's slice inside its
     (rematerialized) body; the gather's backward reduce-scatters over
     the batch axes and slices over the others.  A leaf the split reads
     by its rank's chunk (``d_ff``; ``q_dim`` / ``kv_dim`` and the QKV
-    biases under the head split; ``vocab``) keeps that dim split, not
-    gathered over ``model``; a leaf read whole for a rank's query rows
-    (the attention weights under the row split) sums its gradient over
-    ``model`` (its gather there reduce-scatters).  Every other leaf is
+    biases under the head split; ``d_inner`` / ``ssm_heads`` under the
+    SSM's; ``vocab``) keeps that dim split, not gathered over
+    ``model``; a leaf read whole for a rank's part (the attention
+    weights under the row split, ``in_proj`` under the SSM's split)
+    sums its gradient over ``model`` (its gather there
+    reduce-scatters).  Every other leaf is
     gathered whole (smollm's ``q_dim`` over 16 ranks, 60 columns a
     rank and not whole heads; Whisper's vocabulary 51865, left
     replicated);
@@ -54,6 +58,23 @@ plain tensors, with the collectives run explicitly
     global micro-batch's groups and capacity, computes its own experts
     and sums their outputs over ``model``; the load-balancing
     statistics are summed over the batch axes.
+
+**Sharded serving** (``make_prefill_step(cfg, mesh)``,
+``make_decode_step(cfg, mesh)``) follows the state's trees, not the
+training split: the parameters placed by ``params_shardings(serve=True)``
+(no ``fsdp``), the state by ``decode_state_shardings``, the tokens'
+rows split over ``batch_axes``.  Each rank runs ``M._forward_cached``
+on its rows with the leaves gathered as above (forward only).  The
+caches hold the rank's slots where their sequence splits over
+``model``, so the self-attention is context-parallel (a prefill splits
+the query rows, a decode step joins the softmax over the slots by
+log-sum-exp; ``models/attention.py``) and reads its weights whole; the
+cross-attention, the SSM (its state's heads and conv channels), the
+MLPs and the vocabulary split as in training, the MoE runs
+expert-parallel; a leaf the rank holds split but the compute reads
+whole (hymba's conv tail on 16 ranks) is gathered and its chunk
+written back.  The logits come back whole, ``[B, vocab]`` on every
+rank.
 
 ``make_sharded_grads`` is the step's part before AdamW (loss and
 local gradients).  Axes of size 1 launch nothing and weigh nothing, and
@@ -176,8 +197,9 @@ def batch_shardings(cfg: ModelConfig, mesh, global_batch: int,
 def decode_state_shardings(cfg: ModelConfig, mesh,
                            state_abstract: M.DecodeState,
                            global_batch: int) -> M.DecodeState:
-    """Sharding tree matching a DecodeState: batch over (pod, data), kv
-    heads / ssm heads / d_inner over model, everything else replicated.
+    """Sharding tree matching a DecodeState: batch over (pod, data), the
+    caches' sequence (their slots), the SSM state's heads and the conv
+    tail's ``d_inner`` over model, everything else replicated.
     The port's ``length`` is a Python int; its slot holds a replicated
     spec, so the leaves line up with the reference's one for one."""
     ba = batch_axes(mesh, global_batch)
@@ -436,6 +458,14 @@ def _like(new_tree, old_tree):
         tree_leaves(new_tree), tree_leaves(old_tree))])
 
 
+def _rows(mesh, axes: MeshAxes, b: int) -> Tuple[Tuple[str, ...], int, int]:
+    """(the live batch axes a batch of ``b`` rows splits over, this
+    rank's rows, its first row)."""
+    batch_ax = axes.live(batch_axes(mesh, b))
+    rows = b // math.prod(axes.size[a] for a in batch_ax)
+    return batch_ax, rows, axes.linear_rank(batch_ax) * rows
+
+
 def _mask_count(mb: dict) -> torch.Tensor:
     mask = mb.get("mask")
     if mask is None:
@@ -483,12 +513,10 @@ def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
         b = batch["tokens"].shape[0]
         _check_split(b, microbatches)
         b_mb = b // microbatches
-        batch_ax = axes.live(batch_axes(mesh, b_mb))
+        batch_ax, rows, first = _rows(mesh, axes, b_mb)
         if set(batch_ax) & set(experts):
             raise ValueError(f"the experts are split over a batch axis "
                              f"{experts}")
-        rows = b_mb // math.prod(sizes[a] for a in batch_ax)
-        first = axes.linear_rank(batch_ax) * rows
         mbs = [{k: v[i * b_mb + first:i * b_mb + first + rows]
                 for k, v in batch.items()} for i in range(microbatches)]
         scales = [None] * microbatches
@@ -569,13 +597,68 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _sharded_serve_step(cfg: ModelConfig, mesh):
+    """``step(params, tokens, state) -> (logits, state)`` of the sharded
+    prefill and decode (``make_prefill_step``)."""
+    shardings = params_shardings(cfg, mesh, serve=True)
+    log = CollectiveLog()
+    axes = MeshAxes(mesh, log)
+    tp = TPShard.over(axes)
+    experts = _expert_axes(cfg, shardings, axes) \
+        if cfg.family == "moe" else ()
+    logical = M.logical_axes(cfg)
+
+    def step(params, tokens, state):
+        b, s = tokens.shape
+        batch_ax, rows, first = _rows(mesh, axes, b)
+        local = tree_map(_local, state)
+        if cfg.is_encdec and local.enc is None:
+            raise ValueError("enc-dec serving needs encoder output in "
+                             "state.enc")
+        gather = _Gather(shardings, logical, axes, set(batch_ax),
+                         M.tp_reads(cfg, tp.size, s, serve=True), tp) \
+            if axes.groups else None
+        moe_shard = MoEShard(axes, batch_ax, first, experts) \
+            if cfg.family == "moe" else None
+        logits, new = M._forward_cached(
+            M._unstack_params(tree_map(_local, params)),
+            tokens[first:first + rows], cfg, local, tp, gather, moe_shard)
+        if batch_ax:
+            logits = axes.all_gather_axes(logits, batch_ax,
+                                          "logits-all-gather").reshape(b, -1)
+        return logits, _like(new, state)
+
+    step.collectives = log
+    step.axes = axes
+    step.tp = tp
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """``prefill_step(params, tokens, state) -> (logits, state)``:
+    ``M.prefill``.  With a ``DeviceMesh`` ``mesh`` it is the sharded
+    prefill (module docstring, "Sharded serving"): ``params`` the
+    stacked tree placed by ``params_shardings(cfg, mesh, serve=True)``
+    (DTensors or this rank's shards), ``tokens`` the global batch on
+    every rank, ``state`` placed by ``decode_state_shardings``
+    (``place_tree``); the logits [B, vocab] come back whole on
+    every rank, the state placed as it came.  Its ``collectives``
+    attribute counts what it launched."""
+    if mesh is not None:
+        return _sharded_serve_step(cfg, mesh)
+
     def prefill_step(params, tokens, state):
         return M.prefill(params, tokens, cfg, state)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """``decode_step(params, token, state) -> (logits, state)``:
+    ``M.decode_step``; with a ``mesh`` the sharded decode (as
+    ``make_prefill_step``'s)."""
+    if mesh is not None:
+        return _sharded_serve_step(cfg, mesh)
+
     def decode_step(params, token, state):
         return M.decode_step(params, token, cfg, state)
     return decode_step

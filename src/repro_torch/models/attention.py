@@ -9,6 +9,14 @@
     with a position mask.  The cache's ``length`` is a Python int (the
     host counts the tokens it feeds), so every slot index is known on
     the host and the ring buffer is written through slices, in place.
+  * Context parallelism (serving under a split ``tp``): where the cache
+    holds this rank's chunk of the slots (the sharded serving step
+    places its sequence over ``model``), each rank writes the new
+    tokens that land in its slots; a prefill splits the query rows
+    where they divide (K/V of every row on every rank), and a decode
+    step scores the rank's slots and joins the softmax over the split
+    by log-sum-exp (``_decode_attention_slots``).  Never by heads: a
+    head-split rank would lack the other heads' K/V for its slots.
 """
 from __future__ import annotations
 
@@ -185,24 +193,51 @@ def cache_pos_update(pos: torch.Tensor, length: int,
     return out
 
 
-def cache_update(cache: KVCache, k_new: torch.Tensor,
-                 v_new: torch.Tensor) -> KVCache:
+def _slot_runs(length: int, s_new: int, s_max: int):
+    """``_ring_runs`` of the tokens a ring of ``s_max`` slots keeps of
+    ``s_new`` new ones: all of them where ``s_new < s_max``, else the
+    last ``s_max`` (in at most two runs, slot == pos % s_max)."""
+    if s_new < s_max:
+        return _ring_runs(length, s_new, s_max)
+    first = (length + s_new - s_max) % s_max
+    runs = [(first, s_max, s_new - s_max)]
+    if first:
+        runs.append((0, first, s_new - first))
+    return runs
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 lo: int = 0) -> KVCache:
     """Append S_new tokens starting at absolute position cache.length,
-    writing ``cache.k`` / ``cache.v`` in place.  Slots wrap modulo S_max
-    (ring buffer); if S_new >= S_max only the last S_max tokens are
-    kept, laid out so that slot == pos % S_max."""
-    s_max = cache.k.shape[1]
+    writing ``cache.k`` / ``cache.v`` in place.  Slots wrap modulo
+    S_max = ``pos.shape[0]`` (ring buffer); if S_new >= S_max only the
+    last S_max tokens are kept, laid out so that slot == pos % S_max.
+    A rank that holds a chunk of the ring (context parallelism) passes
+    its first slot ``lo``: its ``cache.k`` / ``cache.v`` are slots
+    ``[lo, lo + n)``, and only the new tokens that land there are
+    written; ``pos`` (every slot's) is updated whole."""
+    n, s_max = cache.k.shape[1], cache.pos.shape[0]
     s_new = k_new.shape[1]
+    for a, e, off in _slot_runs(cache.length, s_new, s_max):
+        a2, e2 = max(a, lo), min(e, lo + n)
+        if a2 < e2:
+            src = slice(off + a2 - a, off + e2 - a)
+            cache.k[:, a2 - lo:e2 - lo] = k_new[:, src]
+            cache.v[:, a2 - lo:e2 - lo] = v_new[:, src]
     pos = cache_pos_update(cache.pos, cache.length, s_new)
-    if s_new >= s_max:
-        shift = (cache.length + s_new - s_max) % s_max
-        cache.k.copy_(torch.roll(k_new[:, -s_max:], shift, dims=1))
-        cache.v.copy_(torch.roll(v_new[:, -s_max:], shift, dims=1))
-    else:
-        for a, e, off in _ring_runs(cache.length, s_new, s_max):
-            cache.k[:, a:e] = k_new[:, off:off + e - a]
-            cache.v[:, a:e] = v_new[:, off:off + e - a]
     return KVCache(cache.k, cache.v, pos, cache.length + s_new)
+
+
+def holds_slot_chunk(cache: KVCache, tp: TPShard) -> bool:
+    """Whether ``cache`` holds this rank's chunk of the slots (its k / v
+    are ``1 / tp.size`` of ``pos``'s slots) rather than every slot."""
+    n, s_max = cache.k.shape[1], cache.pos.shape[0]
+    if n == s_max:
+        return False
+    if n * tp.size != s_max:
+        raise ValueError(f"a cache chunk of {n} slots is not 1 / "
+                         f"{tp.size} of the {s_max} slots")
+    return True
 
 
 def attention_split(cfg, size: int, s: int) -> Optional[str]:
@@ -239,22 +274,28 @@ def attention_apply(
     tp: TPShard = NO_TP,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention with optional KV cache (decode/prefill).  Under a
-    tensor-parallel split ``tp`` (no cache) the rank computes its part
-    (``attention_split``): its heads' columns of ``wq`` / ``wk`` /
+    tensor-parallel split ``tp`` with no cache the rank computes its
+    part (``attention_split``): its heads' columns of ``wq`` / ``wk`` /
     ``wv`` (and biases) and rows of ``wo``, the partial output summed
     over the split; or its query rows (the causal and window masks at
     their offset) against K/V of every row, the output rows gathered
     over the split.  Either way ``x`` enters through ``region_in``: its
-    gradient from this rank is a partial."""
+    gradient from this rank is a partial.  With a cache that holds the
+    rank's chunk of the slots (``holds_slot_chunk``), the attention is
+    context-parallel (module docstring; serving, no gradient across
+    ranks); with a whole cache it is computed whole."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, kh = cfg.n_heads, cfg.n_kv_heads
     w = {n: p[n] for n in ("wq", "wk", "wv", "wo")}
     bias = {n: p.get(n) if cfg.qkv_bias else None for n in ("bq", "bk", "bv")}
-    split = attention_split(cfg, tp.size, s)
-    if split is not None and cache is not None:
-        raise ValueError("tensor-parallel attention takes no KV cache")
-    if split is not None:
+    if cache is None:
+        split = attention_split(cfg, tp.size, s)
+    elif holds_slot_chunk(cache, tp):
+        split = "seq" if s > 1 and s % tp.size == 0 else "slots"
+    else:
+        split = None
+    if split in ("heads", "seq"):
         x = tp.region_in(x)
     xq, q0 = x, 0
     if split == "heads":
@@ -279,25 +320,22 @@ def attention_apply(
         q = apply_rope(q, positions[:, q0:q0 + sq], cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
+    attend = chunked_attention if cfg.attn_impl == "chunked" \
+        else dense_attention
     new_cache = None
     if cache is not None:
-        new_cache = cache_update(cache, k, v)
-        if s > 1:
-            # prefill: queries attend over the fresh K/V directly (the
-            # ring buffer may hold only the window tail, which would be
-            # wrong for early queries); the cache starts empty here.
-            if cfg.attn_impl == "chunked":
-                out = chunked_attention(q, k, v, causal=causal, window=window)
-            else:
-                out = dense_attention(q, k, v, causal=causal, window=window)
-        else:
-            out = _decode_attention(q, new_cache, window=window)
-    elif cfg.attn_impl == "chunked":
-        out = chunked_attention(q, k, v, causal=causal, window=window,
-                                q_offset=q0)
+        lo = tp.rank * cache.k.shape[1] if split is not None else 0
+        new_cache = cache_update(cache, k, v, lo)
+    if cache is None or s > 1:
+        # a prefill attends over the fresh K/V directly (the ring buffer
+        # may hold only the window tail, which would be wrong for early
+        # queries); the cache starts empty here
+        out = attend(q, k, v, causal=causal, window=window, q_offset=q0)
+    elif split is not None:
+        out = _decode_attention_slots(q, new_cache, window=window, tp=tp,
+                                      lo=lo)
     else:
-        out = dense_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q0)
+        out = _decode_attention(q, new_cache, window=window)
 
     out = out.reshape(b, sq, h * hd) @ w["wo"]
     if split == "heads":
@@ -327,18 +365,77 @@ def _decode_attention(q: torch.Tensor, cache: KVCache, *,
     return out.reshape(b, s, h, hd)
 
 
+def _decode_attention_slots(q: torch.Tensor, cache: KVCache, *, window: int,
+                            tp: TPShard, lo: int) -> torch.Tensor:
+    """``_decode_attention`` of a rank that holds slots ``[lo, lo + n)``
+    of the ring, joined over ``tp`` by log-sum-exp: the max of the
+    masked scores over the split (``decode-max``), ``l = Σ exp(s - m)``
+    summed over it (``decode-sum``), the probabilities ``exp(s - m) /
+    l`` rounded to the compute dtype as the whole softmax rounds them,
+    and their float32 products with the rank's values summed over the
+    split (``decode-out``).  A rank with no valid slot scores NEG_INF
+    everywhere; against the split's max (finite: the new token's slot
+    is valid) its exponentials are exact zeros."""
+    b, s, h, hd = q.shape
+    n, kh = cache.k.shape[1], cache.k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, s, kh, g, hd)
+    scores = _gqa_scores(qg, cache.k.to(q.dtype)) / _sqrt_in(hd, q.dtype)
+    qpos = cache.length - 1
+    kpos = cache.pos[None, lo:lo + n]
+    mask = (kpos >= 0) & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    scores = torch.where(mask[None, None, None], scores, NEG_INF).float()
+    m = tp.max(scores.amax(dim=-1, keepdim=True), "decode-max")
+    e = torch.exp(scores - m)
+    l = tp.region_out(e.sum(dim=-1, keepdim=True), "decode-sum")
+    p = (e / l).to(q.dtype)
+    out = tp.region_out(_gqa_out(p.float(), cache.v.float()), "decode-out")
+    return out.to(q.dtype).reshape(b, s, h, hd)
+
+
 def cross_attention_apply(
     p: dict,
     x: torch.Tensor,               # [B, S, d_model] decoder side
     enc: torch.Tensor,             # [B, T, d_model] encoder / vision side
     *,
     cfg,
+    tp: TPShard = NO_TP,
 ) -> torch.Tensor:
+    """Cross-attention of the decoder rows ``x`` over ``enc``.  Under a
+    tensor-parallel split ``tp`` (``attention_split`` over the ``S``
+    decoder rows) the rank computes its heads (its columns of ``wq`` /
+    ``wk`` / ``wv`` and rows of ``wo``, the partial output summed) or
+    its decoder rows against K/V of every encoder row (no mask; the
+    output rows gathered).  Either way both ``x`` and ``enc`` enter
+    through ``region_in``: their gradients from this rank are partials
+    (Whisper's ``enc`` is the encoder's output)."""
     b, s, _ = x.shape
     t = enc.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (enc @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = {n: p[n] for n in ("wq", "wk", "wv", "wo")}
+    split = attention_split(cfg, tp.size, s)
+    if split is not None:
+        x, enc = tp.region_in(x), tp.region_in(enc)
+    xq = x
+    if split == "heads":
+        h, kh = h // tp.size, kh // tp.size
+        for n, full in (("wq", cfg.q_dim), ("wk", cfg.kv_dim),
+                        ("wv", cfg.kv_dim)):
+            w[n] = tp.part(w[n], 1, full)
+        w["wo"] = tp.part(w["wo"], 0, cfg.q_dim)
+    elif split == "seq":
+        sq = s // tp.size
+        xq = x[:, tp.rank * sq:(tp.rank + 1) * sq]
+    sq = xq.shape[1]
+    q = (xq @ w["wq"]).reshape(b, sq, h, hd)
+    k = (enc @ w["wk"]).reshape(b, t, kh, hd)
+    v = (enc @ w["wv"]).reshape(b, t, kh, hd)
     out = dense_attention(q, k, v, causal=False)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"]
+    out = out.reshape(b, sq, h * hd) @ w["wo"]
+    if split == "heads":
+        out = tp.region_out(out)
+    elif split == "seq":
+        out = tp.seq_gather(out, 1)
+    return out

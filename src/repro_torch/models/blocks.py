@@ -145,6 +145,24 @@ def _norm32(s32: torch.Tensor, w: torch.Tensor, cfg, dtype) -> torch.Tensor:
     return rms_norm(s32, w, cfg.norm_eps).to(dtype)
 
 
+def hybrid_mixer(p: dict, h: torch.Tensor, cfg, *, positions: torch.Tensor,
+                 cache: Optional[attn_mod.KVCache] = None,
+                 ssm_state: Optional[ssm_mod.SSMState] = None,
+                 causal: bool = True, tp: TPShard = NO_TP):
+    """Hymba's token mixer on the normed ``h``: the sliding-window
+    attention and the SSM branch, each split by ``tp`` and joined (its
+    own ``region_out`` or row gather), mixed in float32 by
+    ``softmax(mix)`` and rounded to ``h``'s dtype.  Returns (y,
+    new_cache, new_ssm_state)."""
+    y, new_cache = attn_mod.attention_apply(
+        p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+        causal=causal, window=cfg.sliding_window, tp=tp)
+    ys, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state, tp)
+    mix = torch.softmax(p["mix"].float(), dim=-1)
+    return (mix[0] * y.float() + mix[1] * ys.float()).to(h.dtype), \
+        new_cache, new_state
+
+
 def apply_block(
     p: dict,
     x: torch.Tensor,
@@ -163,21 +181,26 @@ def apply_block(
     """Returns (x_out, new_cache, new_ssm_state, aux_loss); aux_loss is
     the MoE router's load-balancing loss where ``want_aux`` (a training
     loss reads it; serving does not), else the float 0.0 (no launch).
-    ``moe_shard``: the sharded train step's ``moe.MoEShard`` (the MoE
-    block's expert parallelism), or None.  ``tp``: the tensor-parallel
-    split of the self-attention and MLP sublayers (the SSM, the
-    cross-attention and the MoE router compute whole on every rank)."""
+    ``moe_shard``: the sharded step's ``moe.MoEShard`` (the MoE block's
+    expert parallelism), or None.  ``tp``: the tensor-parallel split
+    over ``model`` of every sublayer whose dim divides it: the
+    self-attention (by heads or query rows; with a cache, by the
+    cache's slots), the cross-attention (by heads or decoder rows), the
+    SSM (by heads, hymba's branch too) and the MLPs (over ``d_ff``).
+    The norms, the residual stream and the MoE router (replicated in
+    the reference too) are computed whole on every rank."""
     new_cache, new_state = None, None
     zero = 0.0
     dtype = x.dtype
     if kind == "ssm":
         h = rms_norm(x, p["norm"], cfg.norm_eps)
-        y, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state)
+        y, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state, tp)
         return x + y, None, new_state, zero
 
     if kind == "cross":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        y = attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg)
+        y = attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg,
+                                           tp=tp)
         x, s32 = _residual(x, torch.tanh(p["cross"]["gate"]) * y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
         return x + _swiglu(h, p["mlp"], cfg, tp), None, None, zero
@@ -199,20 +222,21 @@ def apply_block(
         x, s32 = _residual(x, y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
         x, s32 = _residual(
-            x, attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg))
+            x, attn_mod.cross_attention_apply(p["cross"], h, enc, cfg=cfg,
+                                              tp=tp))
         h = _norm32(s32, p["norm3"], cfg, dtype)
         return x + _gelu_mlp(h, p["mlp"], cfg, tp), new_cache, None, zero
 
     # dense / moe / hybrid share the attention sublayer
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == "hybrid" else 0
-    y, new_cache = attn_mod.attention_apply(
-        p["attn"], h, cfg=cfg, positions=positions, cache=cache,
-        causal=causal, window=window, tp=tp)
     if kind == "hybrid":
-        ys, new_state = ssm_mod.ssm_apply(p["ssm"], h, cfg, ssm_state)
-        mix = torch.softmax(p["mix"].float(), dim=-1)
-        y = (mix[0] * y.float() + mix[1] * ys.float()).to(dtype)
+        y, new_cache, new_state = hybrid_mixer(
+            p, h, cfg, positions=positions, cache=cache,
+            ssm_state=ssm_state, causal=causal, tp=tp)
+    else:
+        y, new_cache = attn_mod.attention_apply(
+            p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+            causal=causal, tp=tp)
     x, s32 = _residual(x, y)
     x = shard_constraint(x, "batch", "seq", "d_model")
     h = _norm32(s32, p["norm2"], cfg, dtype)

@@ -29,15 +29,17 @@ returns a tree's leaves as the forward reads them.  The top-level
 leaves are gathered once a call, each layer's (group's) inside its
 body, so that a rematerialized body gathers again.  It passes ``tp``
 (``collectives.TPShard``), the tensor-parallel split over ``model``:
-the self-attention and MLP sublayers compute this rank's heads, query
-rows or ``d_ff`` columns, the embedding, the head and the loss its
-vocabulary rows (``_embed``, ``_logits``, ``vocab_parallel_nll``);
+the self- and cross-attention, the SSM and the MLP sublayers compute
+this rank's heads, query rows or ``d_ff`` columns, the embedding, the
+head and the loss its vocabulary rows (``_embed``, ``_logits``,
+``vocab_parallel_nll``);
 ``tp_reads`` says which part of each leaf that is, and those leaves
 stay split over ``model``.  The unsharded model is the split of one
 rank (``NO_TP``).  For the MoE family it also passes ``moe_shard``
 (``moe.MoEShard``): the expert leaves then stay split over ``model``
 and the MoE block computes this rank's rows of the global micro-batch
-on its experts.
+on its experts.  The sharded serving steps pass the same three to
+``_forward_cached``, with the state split as its trees place it.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from repro_torch.models.layers import (
     rms_norm,
     tree_paths,
 )
-from repro_torch.models.ssm import SSMState
+from repro_torch.models.ssm import SSMState, ssm_split
 from repro_torch.optimizer import OptState, Q8State
 from repro_torch.utils.trees import tree_cast
 
@@ -320,18 +322,26 @@ def _logits(x: torch.Tensor, cparams, cfg: ModelConfig,
     return tp.region_in(x) @ tp.part(head, 1, cfg.vocab_size)
 
 
-def tp_reads(cfg: ModelConfig, size: int, seq: int, enc_seq: int = 0):
+def tp_reads(cfg: ModelConfig, size: int, seq: int, enc_seq: int = 0,
+             serve: bool = False):
     """How a tensor-parallel split of ``size`` ranks reads each
     parameter, as a tree of ``param_defs``' shape: the dim (of the
     per-layer leaf, the stacked dims dropped) whose rank chunk the
     compute reads, "partial" where it reads the leaf whole and its
-    gradient is a partial over the split (a query-sequence split
-    attention, over ``seq`` rows, or ``enc_seq`` in the encoder), or
+    gradient is a partial over the split (a query-row split attention,
+    over ``seq`` rows, or ``enc_seq`` in the encoder; ``in_proj`` under
+    the SSM's split, whose columns a rank reads are not contiguous), or
     "whole".  The forward's choices: ``_embed`` / ``_logits`` over
-    ``vocab``, the MLPs over ``d_ff`` (``layers.swiglu``), the
-    self-attention by ``attention.attention_split``."""
+    ``vocab``, the MLPs over ``d_ff`` (``layers.swiglu``), the self- and
+    cross-attention by ``attention.attention_split`` (the cross over
+    the decoder's ``seq`` rows), the SSM by ``ssm.ssm_split``.  With
+    ``serve`` (the sharded prefill and decode) the self-attention reads
+    its weights whole: a cached attention splits the cache's slots and
+    the query rows, never the heads."""
     from repro_torch.models.attention import attention_split
+    from repro_torch.models.ssm import ssm_split
     tp = TPShard.simulated(0, size)
+    ssm = ssm_split(cfg, size)
 
     def read(path, d: ParamDef):
         names = d.logical_axes
@@ -343,7 +353,12 @@ def tp_reads(cfg: ModelConfig, size: int, seq: int, enc_seq: int = 0):
             axis = "vocab" if tp.splits(cfg.vocab_size) else None
         elif parent == "mlp":
             axis = "d_ff" if tp.splits(cfg.d_ff) else None
-        elif parent == "attn":
+        elif parent == "ssm" and ssm is not None:
+            if path[-1] == "in_proj":
+                return "partial"
+            axis = "ssm_heads" if "ssm_heads" in names else "d_inner"
+        elif (parent == "attn" and not serve) or (
+                parent == "cross" and path[-1] in ("wq", "wk", "wv", "wo")):
             split = attention_split(
                 cfg, size, enc_seq if path[0] == "encoder" else seq)
             if split == "seq":
@@ -591,13 +606,62 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return DecodeState(kv=kv, ssm=ssm, pos=pos, length=0, enc=enc)
 
 
+def _ssm_state_in(st: torch.Tensor, cv: torch.Tensor, cfg: ModelConfig,
+                  tp: TPShard) -> SSMState:
+    """A layer's SSM state as the mixer computes it from what the rank
+    holds (``st`` [B, H?, hd, N], ``cv`` [B, k-1, d_inner?]): its chunks
+    where the mixer splits (``ssm_split``), which must be what it holds;
+    else each leaf whole, gathered over ``tp`` where the rank holds a
+    chunk of it (hymba on 16 ranks: 50 heads keep the state whole, its
+    ``d_inner`` 3200 splits the conv tail)."""
+    h, di = cfg.ssm_heads, cfg.d_inner
+    if ssm_split(cfg, tp.size) is not None:
+        if st.shape[1] * tp.size != h or cv.shape[2] * tp.size != di:
+            raise ValueError(f"the SSM splits its {h} heads over "
+                             f"{tp.size} ranks; the rank holds a state of "
+                             f"{st.shape[1]} heads and {cv.shape[2]} "
+                             f"channels")
+        return SSMState(st, cv)
+    if st.shape[1] != h:
+        st = tp.seq_gather(st, 1, "state-all-gather")
+    if cv.shape[2] != di:
+        cv = tp.seq_gather(cv, 2, "state-all-gather")
+    if st.shape[1] != h or cv.shape[2] != di:
+        raise ValueError(f"the SSM computes whole; the rank's state chunks "
+                         f"({tuple(st.shape)}, {tuple(cv.shape)}) were not "
+                         f"gathered whole over {tp.size} ranks")
+    return SSMState(st, cv)
+
+
+def _ssm_state_out(st: torch.Tensor, cv: torch.Tensor, new: SSMState,
+                   tp: TPShard) -> None:
+    """Write the mixer's new state into the rank's leaves, in place: of a
+    leaf the rank holds a chunk of and the mixer computed whole, the
+    rank's chunk."""
+    for mine, got, dim in ((st, new.state, 1), (cv, new.conv, 2)):
+        n = mine.shape[dim]
+        mine.copy_(got if got.shape[dim] == n
+                   else got.narrow(dim, tp.rank * n, n))
+
+
 def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
-                    state: DecodeState):
-    """Shared prefill/decode body: runs S tokens against the caches."""
+                    state: DecodeState, tp: TPShard = NO_TP, gather=None,
+                    moe_shard=None):
+    """Shared prefill/decode body: runs S tokens against the caches.
+    The sharded serving step (``launch/steps.make_prefill_step(mesh=)``)
+    passes ``tp``, ``gather`` and ``moe_shard`` as the train step does
+    (module docstring), and this rank's part of the state: its rows of
+    the batch and, where a leaf's spec splits it over ``model``, its
+    chunk (the caches' slots: context-parallel attention; the SSM
+    state's heads; the conv tail's channels; ``_ssm_state_in``).  The
+    logits are this rank's rows, whole over the vocabulary (the
+    columns gathered, ``logits-all-gather``)."""
     compute = cfg.dtypes.compute_dtype
     cparams = tree_cast(params, compute)
+    if gather is not None:
+        cparams = gather("top", cparams)
     b, s = tokens.shape
-    x = cparams["tok_emb"][tokens]
+    x = _embed(cparams["tok_emb"], tokens, cfg, tp)
     x = shard_constraint(x, "batch", "seq", "d_model")
     length = state.length
     positions = torch.arange(length, length + s, device=x.device)
@@ -613,54 +677,58 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
     new_pos = (cache_pos_update(state.pos, length, s)
                if state.pos is not None else None)
 
-    def run_attn(lp, h, block_kind, k_l, v_l, ssm_l=None):
-        """One block against the layer's cache views, written in place."""
-        cache = KVCache(k_l, v_l, state.pos, length)
+    def layer(section: str, tree):
+        return tree if gather is None else gather(section, tree)
+
+    def run(lp, h, block_kind, k_l=None, v_l=None, ssm_l=None):
+        """One block against the layer's cache views and SSM state,
+        written in place."""
+        cache = None if k_l is None else KVCache(k_l, v_l, state.pos, length)
+        ssm_in = None if ssm_l is None else _ssm_state_in(*ssm_l, cfg, tp)
         y, _, new_ssm, _ = blocks.apply_block(
             lp, h, cfg, block_kind, positions=positions, cache=cache,
-            ssm_state=None if ssm_l is None else SSMState(*ssm_l), enc=enc)
+            ssm_state=ssm_in, enc=enc, moe_shard=moe_shard, tp=tp)
         if new_ssm is not None:
-            ssm_l[0].copy_(new_ssm.state)
-            ssm_l[1].copy_(new_ssm.conv)
+            _ssm_state_out(*ssm_l, new_ssm, tp)
         return y
 
     if _vlm_groups(cfg):
         k_all, v_all = state.kv
         for g, gp in enumerate(cparams["groups"]):
+            gp = layer("groups", gp)
             for j, lp in enumerate(gp["plain"]):
-                x = run_attn(lp, x, "dense", k_all[g, j], v_all[g, j])
-            x, _, _, _ = blocks.apply_block(gp["cross"], x, cfg, "cross",
-                                            positions=positions, enc=enc)
+                x = run(lp, x, "dense", k_all[g, j], v_all[g, j])
+            x = run(gp["cross"], x, "cross")
     elif _moe_groups(cfg):
         kp, vp = state.kv["plain"]
         km, vm = state.kv["moe"]
         for g, gp in enumerate(cparams["groups"]):
+            gp = layer("groups", gp)
             for j, lp in enumerate(gp["plain"]):
-                x = run_attn(lp, x, "dense", kp[g, j], vp[g, j])
-            x = run_attn(gp["moe"], x, "moe", km[g], vm[g])
+                x = run(lp, x, "dense", kp[g, j], vp[g, j])
+            x = run(gp["moe"], x, "moe", km[g], vm[g])
     elif cfg.family == "ssm":
         st_all, cv_all = state.ssm
         for i, lp in enumerate(cparams["layers"]):
-            x, _, new_ssm, _ = blocks.apply_block(
-                lp, x, cfg, "ssm", positions=positions,
-                ssm_state=SSMState(st_all[i], cv_all[i]))
-            st_all[i].copy_(new_ssm.state)
-            cv_all[i].copy_(new_ssm.conv)
+            x = run(layer("layers", lp), x, "ssm",
+                    ssm_l=(st_all[i], cv_all[i]))
     elif cfg.family == "hybrid":
         k_all, v_all = state.kv
         st_all, cv_all = state.ssm
         for i, lp in enumerate(cparams["layers"]):
-            x = run_attn(lp, x, "hybrid", k_all[i], v_all[i],
-                         (st_all[i], cv_all[i]))
+            x = run(layer("layers", lp), x, "hybrid", k_all[i], v_all[i],
+                    (st_all[i], cv_all[i]))
     else:
         k_all, v_all = state.kv
         for i, lp in enumerate(cparams["layers"]):
-            x = run_attn(lp, x, kind, k_all[i], v_all[i])
+            x = run(layer("layers", lp), x, kind, k_all[i], v_all[i])
     new_state = DecodeState(state.kv, state.ssm, new_pos, length + s,
                             state.enc)
 
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
-    logits = x[:, -1, :] @ _head(cparams, cfg)
+    logits = _logits(x[:, -1, :], cparams, cfg, tp)
+    if tp.splits(cfg.vocab_size):
+        logits = tp.seq_gather(logits, 1, "logits-all-gather")
     return shard_constraint(logits, "batch", "vocab"), new_state
 
 

@@ -9,6 +9,12 @@ as the reference does); the cumulative sums and the state stay fp32.
 
 Simplifications vs the full Mamba2 block (as in the reference): scalar
 per-head A, single B/C group, depthwise conv on x only.
+
+Tensor parallelism over ``model`` (``ssm_split``): a rank computes its
+``ssm_heads / size`` heads, which are exactly its ``d_inner / size``
+channels of x and z (the channels are head-major), the B / C columns
+and ``cb = c b^T`` whole (they carry no head), and its rows of
+``out_proj``; the partial outputs are summed over the split.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import NO_TP, TPShard
 from repro_torch.distributed.sharding import shard_constraint
 from repro_torch.models.layers import silu, softplus
 
@@ -35,11 +42,48 @@ def init_ssm_state(batch: int, cfg, dtype, device) -> SSMState:
     )
 
 
-def _split_proj(p, x, cfg):
-    """in_proj -> (z gate [.., d_inner], x [.., d_inner], B [.., N],
-    C [.., N], dt [.., H])."""
-    zxbcdt = x @ p["in_proj"]
+def proj_width(cfg) -> int:
+    """``in_proj``'s columns: z and x (``d_inner`` each), B and C
+    (``ssm_state`` each), dt (``ssm_heads``)."""
+    return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+
+
+def ssm_split(cfg, size: int) -> Optional[str]:
+    """How a tensor-parallel split of ``size`` ranks computes the mixer:
+    "heads" where both ``ssm_heads`` and ``in_proj``'s width divide
+    ``size`` (the width so that the leaf's spec splits it over
+    ``model``, which sums its partial gradient), else None (every rank
+    computes it whole)."""
+    if size > 1 and cfg.ssm_heads % size == 0 \
+            and proj_width(cfg) % size == 0:
+        return "heads"
+    return None
+
+
+def _rank_in_proj(w: torch.Tensor, cfg, tp: TPShard) -> torch.Tensor:
+    """This rank's columns of the whole ``in_proj`` [d, width], in
+    ``_split_proj``'s order: its ``d_inner / size`` channels of z and of
+    x, B and C whole, its ``ssm_heads / size`` entries of dt (the
+    columns of z, x and dt are not contiguous, so ``TPShard.part``
+    cannot cut them)."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    dl, hl = di // tp.size, h // tp.size
+    z0, h0 = tp.rank * dl, tp.rank * hl
+    return torch.cat([w[:, z0:z0 + dl], w[:, di + z0:di + z0 + dl],
+                      w[:, 2 * di:2 * di + 2 * n],
+                      w[:, 2 * di + 2 * n + h0:2 * di + 2 * n + h0 + hl]], 1)
+
+
+def _split_proj(p, x, cfg, tp: TPShard = NO_TP):
+    """in_proj -> (z gate [.., d_inner], x [.., d_inner], B [.., N],
+    C [.., N], dt [.., H]); under a split of ``tp`` z, x and dt are the
+    rank's channels and heads."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    if tp.size == 1:
+        zxbcdt = x @ p["in_proj"]
+    else:
+        zxbcdt = x @ _rank_in_proj(p["in_proj"], cfg, tp)
+        di, h = di // tp.size, h // tp.size
     return torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
 
 
@@ -127,24 +171,38 @@ def ssm_apply(
     x: torch.Tensor,            # [B, S, d_model]
     cfg,
     state: Optional[SSMState] = None,
+    tp: TPShard = NO_TP,
 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """Full Mamba2 mixer.  With ``state`` the call is incremental
-    (prefill appends S tokens; decode S=1) and returns the new state."""
+    (prefill appends S tokens; decode S=1) and returns the new state.
+    Under a tensor-parallel split ``tp`` (``ssm_split``) the rank
+    computes its heads from the whole ``in_proj`` (``_rank_in_proj``)
+    and its chunks of the other leaves, ``x`` entering through
+    ``region_in`` and the partial output summed by ``region_out``; a
+    ``state`` is then the rank's heads of ``state`` and its channels of
+    ``conv``, and so is the state returned."""
     bsz, s, _ = x.shape
-    z, xin, b, c, dt = _split_proj(p, x, cfg)
+    split = ssm_split(cfg, tp.size)
+    if split is None:
+        tp = NO_TP
+    else:
+        x = tp.region_in(x)
+    di, h = cfg.d_inner // tp.size, cfg.ssm_heads // tp.size
+    z, xin, b, c, dt = _split_proj(p, x, cfg, tp)
     xin = shard_constraint(xin, "batch", "seq", "d_inner")
-    xin, new_conv = _conv1d(xin, p["conv_w"],
+    xin, new_conv = _conv1d(xin, tp.part(p["conv_w"], 1, cfg.d_inner),
                             state.conv if state is not None else None)
-    dt = softplus(dt + p["dt_bias"])
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    dt = softplus(dt + tp.part(p["dt_bias"], 0, cfg.ssm_heads))
+    hd = cfg.ssm_head_dim
     xin_h = xin.reshape(bsz, s, h, hd)
     y, new_state = ssd_chunked(
-        xin_h, dt, p["a_log"], b, c, cfg.ssm_chunk,
-        init_state=state.state if state is not None else None)
-    y = y + xin_h * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner)
+        xin_h, dt, tp.part(p["a_log"], 0, cfg.ssm_heads), b, c,
+        cfg.ssm_chunk, init_state=state.state if state is not None else None)
+    y = y + xin_h * tp.part(p["d_skip"], 0, cfg.ssm_heads)[None, None, :,
+                                                          None]
+    y = y.reshape(bsz, s, di)
     y = y * silu(z)                            # gated output
-    out = y @ p["out_proj"]
+    out = tp.region_out(y @ tp.part(p["out_proj"], 0, cfg.d_inner))
     if state is not None:
         return out, SSMState(new_state, new_conv)
     return out, None

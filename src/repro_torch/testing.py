@@ -308,7 +308,9 @@ class Lockstep(TPShard):
         return self
 
     def _call(self, kind: str, x: torch.Tensor):
-        self.calls.append((kind, x.detach()))
+        # a copy, as a collective's output is: the caller may write ``x``
+        # in place later in the pass (a state chunk gathered, then updated)
+        self.calls.append((kind, x.detach().clone()))
         return self.answers.get(len(self.calls) - 1)
 
     def region_in(self, x):
@@ -318,14 +320,14 @@ class Lockstep(TPShard):
         total = self._call("sum", x)
         return x if total is None else total + (x - x.detach())
 
-    def seq_gather(self, x, dim):
+    def seq_gather(self, x, dim, kind="seq-all-gather"):
         parts = self._call("cat", x)
         if parts is None:            # a stand-in of the gathered shape
             return torch.cat([x] * self.size, dim)
         return torch.cat([x if i == self.rank else p
                           for i, p in enumerate(parts)], dim)
 
-    def max(self, x):
+    def max(self, x, kind="max-all-reduce"):
         top = self._call("max", x)
         return x.detach() if top is None else top
 

@@ -30,6 +30,25 @@ Jobs:
             micro-batches 2 and ``MASKED_ROWS`` masked whole (in the
             first micro-batch one data rank has no unmasked row, the
             second has none at all), Maverick on the (2, 2, 2) mesh;
+            mamba2 and the VLM also on the (2, 4) mesh (the SSM split
+            by heads; the VLM's 2 KV heads do not divide 4, so its
+            cross-attention splits the decoder rows);
+  serve     4 ranks: the sharded prefill and decode
+            (``make_prefill_step`` / ``make_decode_step`` with a mesh)
+            of each of ``SERVE_CASES`` at smoke width, fp32: a prefill
+            of ``SERVE_PROMPT`` tokens and ``SERVE_STEPS`` decode steps
+            of a batch of ``SERVE_BATCH``, the state placed by
+            ``decode_state_shardings``: smollm on the (2, 2) and (1, 4)
+            (data, model) meshes (the caches' slots split over
+            ``model``: context-parallel attention), mamba2 and hymba on
+            (2, 2) (the SSM and its state split by heads), hymba with
+            ``ssm_state`` 9 on (1, 4) (``in_proj``'s 282 columns do not
+            divide 4: the mixer computes whole, its state chunks
+            gathered and written back, hymba-1.5b's case on 16 ranks),
+            Scout (expert-parallel) on (2, 2) and the VLM
+            (cross-attention by decoder rows, then whole) on (1, 4);
+            saved: each call's logits, the whole state, the collectives
+            and gathered leaves of each step;
   compress  4 ranks: ``compressed_psum`` over a 4-rank axis on
             ``compress_inputs``, and ``shard_constraint`` on a DTensor
             of a (2, 2) mesh.
@@ -57,6 +76,8 @@ STEP_CASES = tuple(("smollm_360m", mesh, mb)
     + (("smollm_360m", DATA_MODEL4, 1), ("qwen2_5_14b", DATA_MODEL, 1)) \
     + tuple((arch, POD_DATA_MODEL, 2) for arch in
             ("llama_3_2_vision_11b", "mamba2_780m")) \
+    + tuple((arch, DATA_MODEL4, 1) for arch in
+            ("mamba2_780m", "llama_3_2_vision_11b")) \
     + ((SCOUT, DATA_MODEL, 1), (SCOUT, DATA_MODEL, 2),
        (MAVERICK, POD_DATA_MODEL, 2), (SCOUT, DATA_MODEL, 1, DROP_CF),
        (SCOUT, DATA_MODEL, 2, None, MASKED_ROWS))
@@ -69,6 +90,21 @@ STEP_SEQ = 16
 # (the single-process step's own move reads 1.0e-2); their first step's
 # loss and gradients are held instead
 GRADS_ONLY = ("qwen2_5_14b",)
+
+
+# the serve job's 4 ranks: (2, 2) and (1, 4) (data, model) meshes
+SERVE_WORLD = 4
+SERVE_2X2 = ((2, 2), ("data", "model"))
+SERVE_1X4 = ((1, 4), ("data", "model"))
+# (arch, mesh, config changes as sorted pairs)
+SERVE_CASES = (("smollm_360m", SERVE_2X2, ()), ("smollm_360m", SERVE_1X4, ()),
+               ("mamba2_780m", SERVE_2X2, ()), ("hymba_1_5b", SERVE_2X2, ()),
+               ("hymba_1_5b", SERVE_1X4, (("ssm_state", 9),)),
+               (SCOUT, SERVE_2X2, ()),
+               ("llama_3_2_vision_11b", SERVE_1X4, ()))
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 16, 4
+SERVE_CALLS = ((0, SERVE_PROMPT),) + tuple(
+    (i, i + 1) for i in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_STEPS))
 
 
 def case_id(case) -> str:
@@ -169,6 +205,70 @@ def single_process_grads(arch: str):
     return float(loss), tree_leaves(grads), move
 
 
+def serve_id(case) -> str:
+    arch, (sizes, names), changes = case
+    extra = "".join(f"-{k}{v}" for k, v in changes)
+    return f"{arch}-{'x'.join(map(str, sizes))}{extra}"
+
+
+def serve_setup(arch: str, changes=()):
+    """(cfg, stacked parameters, tokens [B, prompt + steps], encoder
+    context or None) of the serve job: ``arch`` at smoke width, fp32,
+    with ``changes``; the VLM's vision embeddings drawn, Whisper's
+    encoder output from drawn frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import DTypePolicy
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtypes=DTypePolicy("float32", "float32",
+                                                 "float32"), **dict(changes))
+    params = M.init_stacked_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS)))
+    enc = None
+    if cfg.is_encdec or cfg.family == "vlm":
+        t = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+        enc = torch.from_numpy(rng.standard_normal(
+            (SERVE_BATCH, t, cfg.d_model)).astype(np.float32))
+        if cfg.is_encdec:
+            enc = M.encode(M._unstack_params(params), enc, cfg)
+    return cfg, params, toks, enc
+
+
+def _serve_calls(cfg, params, toks, enc):
+    from repro_torch.models import model as M
+    views = M._unstack_params(params)
+    state = M.init_decode_state(cfg, SERVE_BATCH,
+                                SERVE_PROMPT + SERVE_STEPS, enc=enc,
+                                device="cpu")
+    logits = []
+    for a, e in SERVE_CALLS:
+        fn = M.prefill if a == 0 else M.decode_step
+        out, state = fn(views, toks[:, a:e], cfg, state)
+        logits.append(out)
+    return logits, state
+
+
+@functools.lru_cache(maxsize=None)
+def single_process_serve(arch: str, changes=()):
+    """The unsharded ``prefill`` / ``decode_step``'s logits of each of
+    ``SERVE_CALLS``, the state after them, and the logits' largest
+    relative move when every parameter moves one ulp (the smoke models
+    at their init scale move 4.9e-6 to 4.9e-5)."""
+    from repro_torch.utils.trees import tree_map
+    cfg, params, toks, enc = serve_setup(arch, changes)
+    logits, state = _serve_calls(cfg, params, toks, enc)
+    g = torch.Generator().manual_seed(7)
+    inf = torch.tensor(float("inf"))
+    nudged = tree_map(lambda x: torch.nextafter(
+        x, torch.where(torch.rand(x.shape, generator=g) < 0.5, inf, -inf)),
+        params)
+    moved, _ = _serve_calls(cfg, nudged, toks, enc)
+    return logits, state, max(rel(a, b) for a, b in zip(moved, logits))
+
+
 def compress_inputs(rank: int):
     """(x, error) of one rank of the compress job."""
     rng = np.random.default_rng(100 + rank)
@@ -238,6 +338,46 @@ def _job_step():
     return out
 
 
+def _job_serve():
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import full_tree, place_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.utils.trees import tree_leaves
+    meshes = {m: init_device_mesh("cpu", m[0], mesh_dim_names=m[1])
+              for m in (SERVE_2X2, SERVE_1X4)}
+    max_len = SERVE_PROMPT + SERVE_STEPS
+    out = {}
+    for case in SERVE_CASES:
+        arch, m, changes = case
+        cfg, params, toks, enc = serve_setup(arch, changes)
+        mesh = meshes[m]
+        steps = {"prefill": ST.make_prefill_step(cfg, mesh),
+                 "decode": ST.make_decode_step(cfg, mesh)}
+        p = place_tree(params, ST.params_shardings(cfg, mesh, serve=True))
+        abstract = ST.abstract_decode_state(cfg, SERVE_BATCH, max_len,
+                                            enc is not None)
+        state = place_tree(
+            M.init_decode_state(cfg, SERVE_BATCH, max_len, enc=enc,
+                                device="cpu"),
+            ST.decode_state_shardings(cfg, mesh, abstract, SERVE_BATCH))
+        logits = []
+        for a, e in SERVE_CALLS:
+            out_, state = steps["prefill" if a == 0 else "decode"](
+                p, toks[:, a:e], state)
+            logits.append(out_)
+        local = [tuple(t.to_local().shape)
+                 for t in tree_leaves((state.kv, state.ssm))]
+        out[case] = {"logits": logits, "state": full_tree(state),
+                     "local_shapes": local,
+                     "collectives": {k: f.collectives.kinds
+                                     for k, f in steps.items()},
+                     "gathered": {k: {a: sorted(v) for a, v in
+                                      f.collectives.gathered.items()}
+                                  for k, f in steps.items()}}
+    return out
+
+
 def _job_compress(rank: int):
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, distribute_tensor
@@ -289,7 +429,8 @@ def main(job: str, rank: int, world: int, tmp: str) -> None:
     store = dist.FileStore(os.path.join(tmp, f"{job}.store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
-        out = _job_step() if job == "step" else _job_compress(rank)
+        out = {"step": _job_step, "serve": _job_serve,
+               "compress": lambda: _job_compress(rank)}[job]()
         torch.save(out, os.path.join(tmp, f"{job}.{rank}.pt"))
         dist.barrier()
     finally:

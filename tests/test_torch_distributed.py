@@ -361,6 +361,70 @@ def test_sharded_step_matches_single_process(sharded_runs, case):
             assert per * n <= kinds["seq-all-gather"]["count"] <= 2 * per * n
 
 
+@pytest.fixture(scope="module")
+def serve_runs(tmp_path_factory):
+    """One spawn of ``D.SERVE_WORLD`` ranks for every case of
+    ``D.SERVE_CASES``."""
+    return D.spawn("serve", D.SERVE_WORLD,
+                   tmp_path_factory.mktemp("serve"))[0]
+
+
+@pytest.mark.parametrize("case", D.SERVE_CASES, ids=D.serve_id)
+def test_sharded_serving_matches_single_process(serve_runs, case):
+    """The sharded prefill and decode steps on 4 gloo ranks: every
+    call's logits [B, vocab] (whole on every rank) and the state after
+    them (its leaves joined) within ``bound(1e-5, move)`` of the
+    unsharded ``prefill`` / ``decode_step``, ``move`` the logits' own
+    one-ulp move (readings: 3.3e-7 to 8.3e-6 against moves of 4.6e-6
+    to 4.9e-5), ``pos`` and ``length`` exactly; each
+    rank held its slots of the caches (the sequence split over
+    ``model``) and its rows of the batch; a decode step joined the
+    attention over the slots by log-sum-exp, the logits' columns were
+    gathered; no leaf the step reads by its chunk (``tp_reads(...,
+    serve=True)``) was gathered over ``model``; where the SSM computes
+    whole over split state leaves, their chunks were gathered."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.layers import tree_paths
+    from repro_torch.models.ssm import ssm_split
+    arch, (sizes, names), changes = case
+    got = serve_runs[case]
+    logits, state, move = D.single_process_serve(arch, changes)
+    tol = bound(1e-5, move)
+    assert len(got["logits"]) == len(logits)
+    for a, b in zip(got["logits"], logits):
+        assert a.shape == b.shape and D.rel(a, b) < tol
+    st = got["state"]
+    assert st.length == state.length
+    if state.pos is not None:
+        assert torch.equal(st.pos, state.pos)
+    want = tree_leaves((state.kv, state.ssm))
+    for a, b, local in zip(tree_leaves((st.kv, st.ssm)), want,
+                           got["local_shapes"]):
+        assert a.shape == b.shape and D.rel(a, b) < tol
+    size = dict(zip(names, sizes))
+    m = size["model"]
+    cfg = D.serve_setup(arch, changes)[0]
+    if state.kv is not None:
+        k = tree_leaves(state.kv)[0]
+        seq_dim = k.ndim - 3
+        assert got["local_shapes"][0][seq_dim] == k.shape[seq_dim] // m
+        assert got["local_shapes"][0][seq_dim - 1] == \
+            k.shape[seq_dim - 1] // size["data"]
+        assert {"decode-max", "decode-sum", "decode-out"} <= \
+            set(got["collectives"]["decode"])
+    if cfg.vocab_size % m == 0:
+        assert "logits-all-gather" in got["collectives"]["decode"]
+    if state.ssm is not None:
+        gathers = "state-all-gather" in got["collectives"]["decode"]
+        assert gathers == (ssm_split(cfg, m) is None)
+    for step, s in (("prefill", D.SERVE_PROMPT), ("decode", 1)):
+        reads = TM.tp_reads(cfg, m, s, serve=True)
+        split = {"/".join(path) for path, r in tree_paths(reads)
+                 if isinstance(r, int)}
+        assert split and not split & set(got["gathered"][step]
+                                         .get("model", ()))
+
+
 def test_meshes():
     """``make_placement_mesh`` is shape only; ``make_host_mesh`` makes a
     one-rank group when there is none; ``make_production_mesh`` needs a
