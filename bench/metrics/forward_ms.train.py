@@ -1,0 +1,7 @@
+"""Device time a train step launched under the program's
+``train.forward`` span (``bench/lib/spans.py``), in the traced steps."""
+from bench.lib import spans
+
+
+def read(run):
+    return spans.per_unit_ms(run, "train", "forward_s", "train.forward")

@@ -18,11 +18,13 @@ from __future__ import annotations
 import dataclasses
 import threading
 import queue as queue_mod
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.data.store import ShardedCorpus
+from repro_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -90,9 +92,13 @@ class PrefetchIterator:
     """Background-thread prefetch so host batch assembly overlaps device
     compute (the CPU-side piece of compute/comm overlap).  ``close``
     stops the thread (the JAX package's has none: its thread blocks on
-    a full queue until the process exits)."""
+    a full queue until the process exits).  ``wait_s`` counts the host
+    seconds the consumer spent blocked for a batch, ``gets`` its calls
+    of ``__next__``; the wait runs in a ``data.wait`` span."""
 
     def __init__(self, it: Iterator, depth: int = 2):
+        self.wait_s = 0.0
+        self.gets = 0
         self._q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
         self._sentinel = object()
         self._err: Optional[BaseException] = None
@@ -125,7 +131,11 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        self.gets += 1
+        t0 = time.perf_counter()
+        with span("data.wait"):
+            item = self._q.get()
+        self.wait_s += time.perf_counter() - t0
         if item is self._sentinel:
             if self._err is not None:
                 raise self._err

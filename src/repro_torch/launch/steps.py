@@ -117,6 +117,7 @@ from repro_torch.optimizer.adamw import (
     adamw_update,
 )
 from repro_torch.optimizer.schedules import cosine_warmup_schedule
+from repro_torch.utils.tracing import span
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
 
@@ -270,13 +271,15 @@ def _value_and_grad(params, batch, cfg: ModelConfig, gather=None,
     ``scale`` where given); a leaf the loss does not reach gets a zero
     gradient, as JAX gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = M.loss_fn(tree_unflatten(params, leaves), batch, cfg,
-                     gather=gather, moe_shard=moe_shard, tp=tp)
-    if scale is not None:
-        loss = loss * scale
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+    with span("train.forward"):
+        loss = M.loss_fn(tree_unflatten(params, leaves), batch, cfg,
+                         gather=gather, moe_shard=moe_shard, tp=tp)
+        if scale is not None:
+            loss = loss * scale
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
 
 
@@ -333,11 +336,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 losses.append(loss_i)
             grads = tree_unflatten(params, [a / microbatches for a in acc])
             loss = torch.stack(losses).mean()
-        lr_scale = cosine_warmup_schedule(
-            opt_state.step, warmup_steps=warmup_steps,
-            total_steps=total_steps)
-        params, opt_state, metrics = adamw_update(
-            params, grads, opt_state, opt_cfg, lr_scale)
+        with span("train.optimizer"):
+            lr_scale = cosine_warmup_schedule(
+                opt_state.step, warmup_steps=warmup_steps,
+                total_steps=total_steps)
+            params, opt_state, metrics = adamw_update(
+                params, grads, opt_state, opt_cfg, lr_scale)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -585,11 +589,13 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         loss, grads = grads_fn(params, batch)
         p_loc = tree_map(_local, params)
         o_loc = tree_map(_local, opt_state)
-        lr_scale = cosine_warmup_schedule(
-            o_loc.step, warmup_steps=warmup_steps, total_steps=total_steps)
-        new_p, new_o, metrics = adamw_update(
-            p_loc, tree_unflatten(p_loc, grads), o_loc, opt_cfg, lr_scale,
-            gnorm=_global_norm(grads, split, grads_fn.axes))
+        with span("train.optimizer"):
+            lr_scale = cosine_warmup_schedule(
+                o_loc.step, warmup_steps=warmup_steps,
+                total_steps=total_steps)
+            new_p, new_o, metrics = adamw_update(
+                p_loc, tree_unflatten(p_loc, grads), o_loc, opt_cfg,
+                lr_scale, gnorm=_global_norm(grads, split, grads_fn.axes))
         metrics["loss"] = loss
         return _like(new_p, params), _like(new_o, opt_state), metrics
 

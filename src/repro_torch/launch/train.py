@@ -69,6 +69,7 @@ class TrainRun:
     setup_s: Dict[str, float]      # data, similarity index, state, restore
     save_s: List[float] = dataclasses.field(default_factory=list)
     wait_s: float = 0.0            # the final wait for queued writes
+    data_wait_s: float = 0.0       # the loop's wait for batches
 
     @property
     def tokens_per_s(self) -> float:
@@ -226,6 +227,7 @@ def _train(args: argparse.Namespace, dev: torch.device, mesh) -> TrainRun:
     finally:
         it.close()
     run.step_s = clock.walls()
+    run.data_wait_s = it.wait_s
     if ckpt:
         if saved != args.steps:
             run.save_s.append(_save(ckpt, args.steps, params, opt_state,
@@ -235,7 +237,8 @@ def _train(args: argparse.Namespace, dev: torch.device, mesh) -> TrainRun:
         run.wait_s = time.perf_counter() - t
     run.params, run.opt_state = full_tree((params, opt_state))
     print(f"[train] done: {args.steps} steps, "
-          f"{run.tokens:,} tokens, {time.time()-t0:.1f}s")
+          f"{run.tokens:,} tokens, {time.time()-t0:.1f}s, "
+          f"{run.data_wait_s:.3f}s waiting for {it.gets} batches")
     return run
 
 

@@ -17,6 +17,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamDef, gelu_mlp, rms_norm, swiglu
+from repro_torch.utils.tracing import span
 
 
 # ----------------------------------------------------------------------
@@ -207,18 +208,20 @@ def apply_block(
 
     if kind == "encoder":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        y, _ = attn_mod.attention_apply(
-            p["attn"], h, cfg=cfg, positions=positions, causal=False,
-            use_rope=False, tp=tp)
+        with span("layer.attention"):
+            y, _ = attn_mod.attention_apply(
+                p["attn"], h, cfg=cfg, positions=positions, causal=False,
+                use_rope=False, tp=tp)
         x, s32 = _residual(x, y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
         return x + _gelu_mlp(h, p["mlp"], cfg, tp), None, None, zero
 
     if kind == "dec_cross":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        y, new_cache = attn_mod.attention_apply(
-            p["attn"], h, cfg=cfg, positions=positions, cache=cache,
-            causal=causal, use_rope=False, tp=tp)
+        with span("layer.attention"):
+            y, new_cache = attn_mod.attention_apply(
+                p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+                causal=causal, use_rope=False, tp=tp)
         x, s32 = _residual(x, y)
         h = _norm32(s32, p["norm2"], cfg, dtype)
         x, s32 = _residual(
@@ -229,14 +232,15 @@ def apply_block(
 
     # dense / moe / hybrid share the attention sublayer
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind == "hybrid":
-        y, new_cache, new_state = hybrid_mixer(
-            p, h, cfg, positions=positions, cache=cache,
-            ssm_state=ssm_state, causal=causal, tp=tp)
-    else:
-        y, new_cache = attn_mod.attention_apply(
-            p["attn"], h, cfg=cfg, positions=positions, cache=cache,
-            causal=causal, tp=tp)
+    with span("layer.attention"):
+        if kind == "hybrid":
+            y, new_cache, new_state = hybrid_mixer(
+                p, h, cfg, positions=positions, cache=cache,
+                ssm_state=ssm_state, causal=causal, tp=tp)
+        else:
+            y, new_cache = attn_mod.attention_apply(
+                p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+                causal=causal, tp=tp)
     x, s32 = _residual(x, y)
     x = shard_constraint(x, "batch", "seq", "d_model")
     h = _norm32(s32, p["norm2"], cfg, dtype)

@@ -67,6 +67,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.ssm import SSMState, ssm_split
 from repro_torch.optimizer import OptState, Q8State
+from repro_torch.utils.tracing import span
 from repro_torch.utils.trees import tree_cast
 
 
@@ -263,13 +264,18 @@ def _maybe_remat(fn: Callable, remat: str) -> Callable:
     """``fn`` under the activation-checkpoint policy ``remat``, as the
     reference's ``_maybe_remat`` applies ``cfg.remat`` to a layer (or
     group) body: "none" saves everything, "full" nothing, "selective"
-    the weight matmuls' outputs."""
+    the weight matmuls' outputs.  The body runs in a ``model.layer``
+    span inside the checkpoint, so that its recomputation in the
+    backward opens the span again."""
+    def layer(*args):
+        with span("model.layer"):
+            return fn(*args)
     if remat == "none" or not torch.is_grad_enabled():
-        return fn
+        return layer
     extra = {} if remat == "full" else {"context_fn": _save_weight_matmuls}
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **extra)
+        return checkpoint(layer, *args, use_reentrant=False, **extra)
     return run
 
 
@@ -456,8 +462,9 @@ def _forward_impl(
             x, aux = body(lp, x)
             aux_total = aux_total + aux
 
-    x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
-    logits = _logits(x, cparams, cfg, tp)
+    with span("model.head"):
+        x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
+        logits = _logits(x, cparams, cfg, tp)
     return shard_constraint(logits, "batch", "seq", "vocab"), aux_total
 
 
@@ -524,20 +531,22 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     leaves.  Each layer (group) body runs under ``cfg.remat``.
     ``gather``, ``moe_shard``, ``tp``: the sharded step's (see the
     module docstring); the cross-entropy is ``vocab_parallel_nll``."""
-    views = _unstack_params(tree_cast(params, cfg.dtypes.compute_dtype))
-    logits, aux = _forward_impl(views, batch["tokens"], cfg,
+    with span("model.cast"):
+        cast = tree_cast(params, cfg.dtypes.compute_dtype)
+    logits, aux = _forward_impl(_unstack_params(cast), batch["tokens"], cfg,
                                 batch.get("enc_inputs"),
                                 want_aux=cfg.family == "moe",
                                 remat=cfg.remat, gather=gather,
                                 moe_shard=moe_shard, tp=tp)
-    nll = vocab_parallel_nll(logits, batch["labels"],
-                             tp if tp.splits(cfg.vocab_size) else NO_TP)
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones_like(nll)
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    if cfg.family == "moe":
-        loss = loss + aux_coef * aux
+    with span("model.loss"):
+        nll = vocab_parallel_nll(logits, batch["labels"],
+                                 tp if tp.splits(cfg.vocab_size) else NO_TP)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(nll)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        if cfg.family == "moe":
+            loss = loss + aux_coef * aux
     return loss
 
 
@@ -570,7 +579,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: "torch.device | str | None" = None
                       ) -> DecodeState:
     """An empty state on ``device`` (CUDA unless named)."""
-    dev = resolve_device(device)
+    with span("serve.init_state"):
+        return _init_decode_state(cfg, batch, max_len, enc,
+                                  resolve_device(device))
+
+
+def _init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                       enc: Optional[torch.Tensor],
+                       dev: torch.device) -> DecodeState:
     dt = cfg.dtypes.kv_cache_dtype
 
     def zeros(*shape, dtype=dt):
@@ -725,10 +741,11 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
     new_state = DecodeState(state.kv, state.ssm, new_pos, length + s,
                             state.enc)
 
-    x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
-    logits = _logits(x[:, -1, :], cparams, cfg, tp)
-    if tp.splits(cfg.vocab_size):
-        logits = tp.seq_gather(logits, 1, "logits-all-gather")
+    with span("model.head"):
+        x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
+        logits = _logits(x[:, -1, :], cparams, cfg, tp)
+        if tp.splits(cfg.vocab_size):
+            logits = tp.seq_gather(logits, 1, "logits-all-gather")
     return shard_constraint(logits, "batch", "vocab"), new_state
 
 

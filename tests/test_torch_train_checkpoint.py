@@ -210,6 +210,7 @@ def test_train_driver_runs_and_resumes_on_cpu(tmp_path):
               for l in first.splitlines() if " loss " in l]
     assert len(losses) == 4 and np.all(np.isfinite(losses))
     assert "[train] done: 4 steps" in first
+    assert "s waiting for 4 batches" in first
     assert TC.latest_step(ckpt) == 4
     second = _train(ckpt, 6)
     assert "[train] resumed from step 4" in second
