@@ -185,9 +185,11 @@ Phases, each of which raises (exit code not 0) on any failure:
                 not gated.  Gate: ``vector_shard_similarities_batch`` of
                 the 40 user vectors against its plain version, row 1
                 within rtol 1e-4, row 5 exactly.
- 18. LM serving — the LM model zoo's serving path, which has no kernel
-                of its own (the record's counts are zeroed before it and
-                must read 0 after).  (a) smollm-360m and mamba2-780m at
+ 18. LM serving — the LM model zoo's serving path, which launches no
+                kernel of rows 1-12 (their counts are zeroed before it
+                and must read 0 after); its self-attention takes row 13,
+                the fused attention forward, whose launches are counted
+                (path ``lm_serve``, at least one).  (a) smollm-360m and mamba2-780m at
                 full width through ``launch/serve.serve``: parameters
                 drawn on the card from a seeded ``torch.Generator``, the
                 default policy (fp32 parameters, bf16 compute and KV
@@ -332,6 +334,18 @@ Phases, each of which raises (exit code not 0) on any failure:
                 state split by heads over 16 ranks, joined, within
                 ``run_bound`` of the whole; (e) the EmApprox kernel
                 counts read 0 (path ``serve_mesh``).
+ 24. attention — row 13, the fused attention forward, at the prefill
+                cell's shapes (smollm-360m's 15 / 5 heads, head 64,
+                causal, bfloat16; 1747 tokens x 37 prompts and 150 x
+                436): against ``dense_attention`` in float32 within twice
+                the bfloat16 ``dense_attention``'s own error, which the
+                probabilities rounded to float8 exceed; bit for bit from
+                run to run; ``ms``,
+                ``device_ms``, the bound (causal operations over 989
+                TFLOP/s against Q, K, V and O over 3.35 TB/s), the plain
+                version's ms and ``scaled_dot_product_attention`` as
+                ``library_ms`` (a yardstick: the port never calls it);
+                its launches in phases 18, 19 and 23.
 
 Each of the main paths (serving, megascan, top-k, their sym
 counterparts, training, k-means, the offline build, ingest, the stack
@@ -339,9 +353,11 @@ and recommendation) is driven with the launch counters set to 0 just
 before it and read just after; each of its kernels must have launched,
 and launches made only to hold one route against another are left out.
 The LM serving path (phase 18), the MoE path (phase 21) and the
-tensor-parallel paths (phases 22 and 23) have no kernel: their counts
-must read 0; the LM training paths (phases 19 and
-20) launch rows 1 and 11.
+tensor-parallel paths (phases 22 and 23) launch no kernel of rows 1-12:
+their counts must read 0; the LM training paths (phases 19 and
+20) launch rows 1 and 11.  Row 13 runs wherever a self-attention on
+the card records no gradient (phases 18 and 23; its record counts
+those and phase 19's).
 Row 5 runs on four paths (the sym batch, the shard-granular planning,
 the sym top-k, recommendation): its record's ``launches`` is the sym
 batch's count and ``launches_by_path`` has each path's own; so do rows
@@ -366,6 +382,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12       # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 RTOL = 1e-4
 # batches the serving phase serves: the first of --batch queries on cold
@@ -4589,6 +4606,111 @@ def serve_phase_mesh(dev: torch.device, args, kernels: list) -> None:
         f"wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 24: the fused attention forward (row 13) at the prefill cell's
+# shapes
+# ----------------------------------------------------------------------
+ATTN_HEADS = (15, 5, 64)      # smollm-360m: query heads, KV heads, head dim
+ATTN_SHAPES = ((1747, 37), (150, 436))  # the prefill cell's longest and
+                                        # shortest prompts: (length, rows)
+
+
+def _attention_errors(aref, got, q, k, v):
+    """(kernel, dense bfloat16, control) max abs errors against
+    ``dense_attention`` in float32, causal, over prompts in slices (the
+    float32 scores of every prompt at once would take 20 GB)."""
+    err = plain = control = 0.0
+    for i in range(0, q.shape[0], 4):
+        qs, ks, vs = (x[i:i + 4] for x in (q, k, v))
+        want = aref.dense_attention(qs.float(), ks.float(), vs.float(),
+                                    causal=True)
+        err = max(err, float((got[i:i + 4].float() - want).abs().max()))
+        plain = max(plain, float((aref.dense_attention(
+            qs, ks, vs, causal=True).float() - want).abs().max()))
+        b, s, h, hd = qs.shape
+        kh = ks.shape[2]
+        scores = aref._gqa_scores(qs.float().reshape(b, s, kh, h // kh, hd),
+                                  ks.float()) / aref._sqrt_in(hd, torch.float32)
+        scores = torch.where(aref._causal_mask(s, s, 0, 0, q.device),
+                             scores, aref.NEG_INF)
+        p = torch.softmax(scores, dim=-1).to(torch.float8_e4m3fn).float()
+        bad = aref._gqa_out(p, vs.float()).reshape(b, s, h, hd)
+        control = max(control, float((bad - want).abs().max()))
+        del want, scores, p, bad
+    return err, plain, control
+
+
+def attention_phase(dev: torch.device, launches_by_path: dict) -> list:
+    """Row 13 at the prefill cell's shapes (the benchmark's
+    ``prefill-64k``: 65536 tokens a batch), causal, bfloat16: the
+    kernel against ``dense_attention`` in float32, within twice the
+    error of ``dense_attention`` in bfloat16 on the same inputs (the
+    tolerance of the card tests), while ``dense_attention`` in float32
+    with its probabilities rounded to float8 e4m3 (the control) must
+    fall outside it; bit for bit from run to run; ``ms``, ``device_ms``, the bound (causal operations, QK^T and
+    PV, over 989 TFLOP/s against Q, K, V and O read or written once
+    over 3.35 TB/s), the plain version (``dense_attention`` in
+    bfloat16) and ``scaled_dot_product_attention`` as ``library_ms``,
+    a yardstick the port never calls.  ``launches_by_path``: the
+    kernel's launches in phases 18 (``lm_serve``), 19 (``lm_train``)
+    and 23 (``serve_mesh``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import kernel as ak
+    from repro_torch.kernels.attention import ref as aref
+
+    h, kh, hd = ATTN_HEADS
+    require_launched({"fused_attention": launches_by_path["lm_serve"]},
+                     "lm_serve")
+    out = []
+    for s, b in ATTN_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(13)
+        q = torch.randn(b, s, h, hd, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(b, s, kh, hd, generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+
+        def call():
+            return ak.fused_attention_kernel(q, k, v, causal=True)
+
+        got = call()
+        same(got, call(), f"fused attention at {s} x {b}")
+        err, plain, control = _attention_errors(aref, got, q, k, v)
+        log(f"   max abs err against float32: kernel {err:.4g}, "
+            f"dense bfloat16 {plain:.4g}, control (P in float8) "
+            f"{control:.4g}")
+        if not err <= 2 * plain < control:
+            raise AssertionError(
+                f"fused attention at {s} x {b}: max abs err {err:.4g}, "
+                f"bound {2 * plain:.4g}, control {control:.4g}")
+        ops = 4.0 * b * h * hd * s * (s + 1) / 2
+        nbytes = 2.0 * (2 * q.numel() + 2 * k.numel())
+        t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+        plain_ms = time_ms(lambda: aref.dense_attention(q, k, v, causal=True),
+                           reps=5, warmup=1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        times = timed(call)
+        kr = dict(
+            name=f"fused_attention_{s}x{b}", route="cuda",
+            source="src/repro_torch/csrc/attention.cu", replaces=None,
+            launches=launches_by_path["lm_serve"],
+            launches_by_path=dict(launches_by_path), max_abs_err=err,
+            plain_err=plain, control_err=control,
+            **times, plain_ms=plain_ms,
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=library_ms)
+        log_kernel(kr, dict(S=s, B=b, H=h, KH=kh, hd=hd, causal=True))
+        log(f"   {100 * kr['bound_ms'] / kr['device_ms']:.1f} % of the "
+            f"bound; library (scaled_dot_product_attention) "
+            f"{library_ms:.4f} ms")
+        out.append(kr)
+        del q, k, v, qt, kt, vt, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4662,13 +4784,20 @@ def main(argv=None) -> int:
     log(f"== LM serving: {', '.join(a for a, _ in LM_FULL)} at full width "
         f"through launch/serve.serve, then every architecture at smoke "
         f"width against the CPU")
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    attn = attn_kernel.fused_attention_kernel
+    attn_by_path = {}
+    n0 = attn.launches
     lm_phase(dev, args)
+    attn_by_path["lm_serve"] = attn.launches - n0
     log(f"== LM training on {card}: launch/train {TRAIN_ARCH} at full "
         f"width on {TRAIN_DOCS} docs with the similarity curriculum, a "
         f"resume, the loss on one batch "
         f"({', '.join(a for a, _ in FALL)}), gradients against the CPU, "
         f"every architecture at smoke width")
+    n0 = attn.launches
     train_phase_lm(dev, args, kernels)
+    attn_by_path["lm_train"] = attn.launches - n0
     log(f"== distributed on {card}: a one-rank NCCL mesh, launch/train "
         f"{TRAIN_ARCH} through it, the sharded step against the unsharded "
         f"step, the compressed all-reduce")
@@ -4688,7 +4817,13 @@ def main(argv=None) -> int:
         f"sharded prefill and decode of "
         f"{', '.join(a for a, _ in LM_FULL)} on a one-rank NCCL mesh, "
         f"context-parallel decode over {CP_RANKS} ranks")
+    n0 = attn.launches
     serve_phase_mesh(dev, args, kernels)
+    attn_by_path["serve_mesh"] = attn.launches - n0
+    log(f"== fused attention (row 13) at the prefill cell's shapes: "
+        f"{', '.join(f'{a} x {b}' for a, b in ATTN_SHAPES)}, heads "
+        f"{ATTN_HEADS}")
+    kernels += attention_phase(dev, attn_by_path)
     log(f"== done in {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,11 @@
   * ``attn_impl="chunked"`` is a flash-style lazy softmax over KV chunks
     (running max/denominator), a Python loop over the chunks; "dense"
     materializes [B, H, S, T].
+  * A self-attention call on CUDA tensors that autograd does not record
+    (a prefill) takes the fused kernel (``kernels/attention``), whatever
+    ``attn_impl`` says: it is the chunked algorithm in one launch, and
+    writes no scores.  A call that records a gradient (the train step)
+    and CPU tensors keep the dense or chunked path.
   * Decode: one query token against a [B, S_max, kv, hd] ring buffer
     with a position mask.  The cache's ``length`` is a Python int (the
     host counts the tokens it feeds), so every slot index is known on
@@ -25,72 +30,18 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.distributed.collectives import NO_TP, TPShard
+from repro_torch.kernels.attention import kernel as fused
+from repro_torch.kernels.attention.ops import takes_kernel
+from repro_torch.kernels.attention.ref import (NEG_INF, _gqa_out,
+                                               _gqa_scores, _sqrt_in,
+                                               dense_attention)
 from repro_torch.models.layers import apply_rope, dot_bias
-
-NEG_INF = -1e30
-
-
-def _sqrt_in(hd: int, dtype) -> float:
-    """sqrt(hd) computed in float32 and rounded to ``dtype``, as the
-    reference's ``jnp.sqrt(hd).astype(q.dtype)``."""
-    return float(torch.sqrt(torch.tensor(float(hd))).to(dtype))
 
 
 def _inv_sqrt_in(hd: int, dtype) -> float:
     """1 / sqrt(hd) in float32, rounded to ``dtype`` (the reference's
     weakly typed ``1.0 / jnp.sqrt(hd)`` takes the scores' dtype)."""
     return float((1.0 / torch.sqrt(torch.tensor(float(hd)))).to(dtype))
-
-
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: [B, S, KH, G, hd], k: [B, T, KH, hd] -> [B, KH, G, S, T]."""
-    return torch.einsum("bskgd,btkd->bkgst", q, k)
-
-
-def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """p: [B, KH, G, S, T], v: [B, T, KH, hd] -> [B, S, KH, G, hd]."""
-    return torch.einsum("bkgst,btkd->bskgd", p, v)
-
-
-def _causal_mask(s: int, t: int, offset: int, window: int,
-                 device) -> torch.Tensor:
-    """[S, T] True = visible.  offset positions precede the queries."""
-    qpos = torch.arange(s, device=device)[:, None] + offset
-    kpos = torch.arange(t, device=device)[None, :]
-    mask = kpos <= qpos
-    if window > 0:
-        mask &= kpos > (qpos - window)
-    return mask
-
-
-def dense_attention(
-    q: torch.Tensor,              # [B, S, H, hd]
-    k: torch.Tensor,              # [B, T, KH, hd]
-    v: torch.Tensor,              # [B, T, KH, hd]
-    *,
-    causal: bool,
-    window: int = 0,
-    q_offset: int = 0,
-    kv_valid_len: Optional[torch.Tensor] = None,   # [B] for decode masking
-) -> torch.Tensor:
-    b, s, h, hd = q.shape
-    t, kh = k.shape[1], k.shape[2]
-    g = h // kh
-    qg = q.reshape(b, s, kh, g, hd)
-    scores = _gqa_scores(qg, k) / _sqrt_in(hd, q.dtype)
-    mask = None
-    if causal:
-        mask = _causal_mask(s, t, q_offset, window, q.device)[None, None, None]
-    if kv_valid_len is not None:
-        valid = (torch.arange(t, device=q.device)[None, :]
-                 < kv_valid_len[:, None])                    # [B, T]
-        valid = valid[:, None, None, None, :]
-        mask = valid if mask is None else (mask & valid)
-    if mask is not None:
-        scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    out = _gqa_out(p, v)
-    return out.reshape(b, s, h, hd)
 
 
 def chunked_attention(
@@ -320,8 +271,12 @@ def attention_apply(
         q = apply_rope(q, positions[:, q0:q0 + sq], cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    attend = chunked_attention if cfg.attn_impl == "chunked" \
-        else dense_attention
+    if takes_kernel(q, k, v):
+        attend = fused.fused_attention_kernel
+    elif cfg.attn_impl == "chunked":
+        attend = chunked_attention
+    else:
+        attend = dense_attention
     new_cache = None
     if cache is not None:
         lo = tp.rank * cache.k.shape[1] if split is not None else 0
