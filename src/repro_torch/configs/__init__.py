@@ -5,6 +5,10 @@ One module per LM architecture of the JAX package's registry (the same
 ``CONFIG`` and ``smoke_config()``, field for field) plus ``emapprox``,
 the paper's own PV-DBOW workload.  ``CONFIG`` is the full-size model;
 ``smoke_config()`` is the reduced, CPU-runnable one.
+
+``list_archs()`` and ``ALIASES`` stay the JAX package's; the port's own
+architectures (``PORT_ARCHS``, named by ``PORT_ALIASES``), which the
+JAX package lacks, resolve through ``get_config`` as well.
 """
 from __future__ import annotations
 
@@ -38,12 +42,16 @@ ALIASES.update({
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 })
 
+PORT_ARCHS = ["granite_4_0_h_micro"]
+PORT_ALIASES = {"granite-4.0-h-micro": "granite_4_0_h_micro"}
+
 
 def list_archs() -> List[str]:
     return list(_ARCHS)
 
 
 def get_config(arch: str, smoke: bool = False):
-    mod_name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    name = ALIASES.get(arch) or PORT_ALIASES.get(arch, arch)
+    mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.CONFIG

@@ -18,12 +18,13 @@ reported a CUDA error, and adds one to its ``launches`` counter.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import common
 from repro_torch.kernels.attention.ops import records_grad
-from repro_torch.kernels.attention.ref import _sqrt_in
+from repro_torch.kernels.attention.ref import _divisor
 
 HEAD_DIMS = (16, 32, 64, 128)
 # the entry point's dtype codes
@@ -50,12 +51,14 @@ def _extent(t: torch.Tensor) -> int:
 
 def fused_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool,
-                           window: int = 0, q_offset: int = 0
-                           ) -> torch.Tensor:
+                           window: int = 0, q_offset: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """q [B, S, H, hd], k and v [B, T, KH, hd] CUDA tensors of one dtype
     (bfloat16, float16 or float32), hd in ``HEAD_DIMS``, the last
     dimension contiguous and 16-bit rows on 16-byte boundaries ->
-    [B, S, H, hd] contiguous, on the hand-written CUDA kernel."""
+    [B, S, H, hd] contiguous, on the hand-written CUDA kernel.  The
+    scores are divided by ``dense_attention``'s divisor: sqrt(hd), or
+    1 / ``scale`` where given (both rounded to q's dtype)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on q's device, "
@@ -100,7 +103,7 @@ def fused_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], b, s, t, kh, h // kh, hd, q_offset, window,
-        int(bool(causal)), _sqrt_in(hd, q.dtype),
+        int(bool(causal)), _divisor(hd, q.dtype, scale),
         common.stream_ptr(q.device))
     common.check_launch(rc, "fused_attention")
     fused_attention_kernel.launches += 1

@@ -20,6 +20,15 @@ def _sqrt_in(hd: int, dtype) -> float:
     return float(torch.sqrt(torch.tensor(float(hd))).to(dtype))
 
 
+def _divisor(hd: int, dtype, scale: Optional[float] = None) -> float:
+    """The scores' divisor: ``_sqrt_in(hd, dtype)``, or where a
+    configuration states its score scale (Granite's
+    ``attention_multiplier``), 1 / ``scale`` rounded to ``dtype``."""
+    if scale is None:
+        return _sqrt_in(hd, dtype)
+    return float(torch.tensor(1.0 / scale).to(dtype))
+
+
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q: [B, S, KH, G, hd], k: [B, T, KH, hd] -> [B, KH, G, S, T]."""
     return torch.einsum("bskgd,btkd->bkgst", q, k)
@@ -50,12 +59,13 @@ def dense_attention(
     window: int = 0,
     q_offset: int = 0,
     kv_valid_len: Optional[torch.Tensor] = None,   # [B] for decode masking
+    scale: Optional[float] = None,                 # None: 1 / sqrt(hd)
 ) -> torch.Tensor:
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
     qg = q.reshape(b, s, kh, g, hd)
-    scores = _gqa_scores(qg, k) / _sqrt_in(hd, q.dtype)
+    scores = _gqa_scores(qg, k) / _divisor(hd, q.dtype, scale)
     mask = None
     if causal:
         mask = _causal_mask(s, t, q_offset, window, q.device)[None, None, None]

@@ -41,6 +41,10 @@ status ok or skipped is not run again unless ``--force``):
     error;
   * ``fits_80gb``: the cell's peak live bytes (state included) within
     one H100's 80 GB (80e9 bytes).
+
+A configuration with no sharded step (``steps.refuse_unsharded``: the
+port's interleaved Granite 4.0-H) is refused: ``run_cell`` raises
+``NotImplementedError``, which ``main`` records as the cell's error.
 """
 from __future__ import annotations
 
@@ -245,6 +249,7 @@ def cost_probe(cfg, shape: str, mesh, microbatches: int) -> Dict:
 
 def run_cell(arch: str, shape: str, multi_pod: bool) -> Dict:
     cfg = get_config(arch)
+    ST.refuse_unsharded(cfg)
     tag = "multi" if multi_pod else "single"
     ok, reason = S.cell_is_supported(cfg, shape)
     if not ok:

@@ -495,6 +495,17 @@ def _global_norm(grads: list, split: list, axes: MeshAxes) -> torch.Tensor:
     return torch.sqrt(sum(sq))
 
 
+def refuse_unsharded(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration with no sharded
+    step: the interleaved stack (Granite 4.0-H) runs on one device."""
+    if cfg.family == "interleaved":
+        raise NotImplementedError(
+            f"{cfg.name}: the interleaved stack has no sharded step (no "
+            "sharding rules for its Mamba2 and attention stacks); run it "
+            "on one device, make_train_step / make_prefill_step without "
+            "a mesh")
+
+
 def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
                        accum_dtype: Optional[torch.dtype] = None):
     """The sharded step's loss and gradients (module docstring), the
@@ -503,6 +514,7 @@ def make_sharded_grads(cfg: ModelConfig, mesh, microbatches: int = 1,
     and ``batch`` the global batch.  Its ``collectives`` attribute
     counts what it launched, ``split`` lists each leaf's split mesh
     axes and ``axes`` is its ``MeshAxes``."""
+    refuse_unsharded(cfg)
     acc_dt = accum_dtype or torch.float32
     shardings = params_shardings(cfg, mesh)
     sizes = mesh_shape(mesh)
@@ -606,6 +618,7 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 def _sharded_serve_step(cfg: ModelConfig, mesh):
     """``step(params, tokens, state) -> (logits, state)`` of the sharded
     prefill and decode (``make_prefill_step``)."""
+    refuse_unsharded(cfg)
     shardings = params_shardings(cfg, mesh, serve=True)
     log = CollectiveLog()
     axes = MeshAxes(mesh, log)

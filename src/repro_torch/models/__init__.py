@@ -11,7 +11,9 @@ and the training loss ``loss_fn`` over the stacked tree
 Families: dense transformer (GQA/RoPE/QKV-bias), MoE (top-k capacity
 dispatch), SSM (Mamba2 SSD), hybrid (Hymba parallel attn+SSM), enc-dec
 audio backbone (Whisper, stub frontend), VLM (Llama-3.2-vision backbone,
-stub patch embeddings, interleaved cross-attention).
+stub patch embeddings, interleaved cross-attention); and the port's
+own interleaved stack (Granite 4.0-H: published Mamba2 layers between
+NoPE GQA attention layers, ``config.InterleavedConfig``).
 """
 from repro_torch.models.config import ModelConfig, DTypePolicy  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401

@@ -32,15 +32,18 @@ import torch
 from repro_torch.distributed.collectives import NO_TP, TPShard
 from repro_torch.kernels.attention import kernel as fused
 from repro_torch.kernels.attention.ops import takes_kernel
-from repro_torch.kernels.attention.ref import (NEG_INF, _gqa_out,
-                                               _gqa_scores, _sqrt_in,
+from repro_torch.kernels.attention.ref import (NEG_INF, _divisor,
+                                               _gqa_out, _gqa_scores,
                                                dense_attention)
 from repro_torch.models.layers import apply_rope, dot_bias
 
 
-def _inv_sqrt_in(hd: int, dtype) -> float:
+def _inv_sqrt_in(hd: int, dtype, scale: Optional[float] = None) -> float:
     """1 / sqrt(hd) in float32, rounded to ``dtype`` (the reference's
-    weakly typed ``1.0 / jnp.sqrt(hd)`` takes the scores' dtype)."""
+    weakly typed ``1.0 / jnp.sqrt(hd)`` takes the scores' dtype), or a
+    stated score ``scale`` rounded to it."""
+    if scale is not None:
+        return float(torch.tensor(scale).to(dtype))
     return float((1.0 / torch.sqrt(torch.tensor(float(hd)))).to(dtype))
 
 
@@ -51,8 +54,10 @@ def chunked_attention(
     window: int = 0,
     q_offset: int = 0,
     chunk: int = 512,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash-style lazy softmax over KV chunks: O(S * chunk) live scores."""
+    """Flash-style lazy softmax over KV chunks: O(S * chunk) live scores;
+    the scores times ``scale`` (None: 1 / sqrt(hd))."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -62,7 +67,7 @@ def chunked_attention(
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    scale = _inv_sqrt_in(hd, q.dtype)
+    scale = _inv_sqrt_in(hd, q.dtype, scale)
     dev = q.device
     qpos = torch.arange(s, device=dev)[:, None] + q_offset
     m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=dev)
@@ -222,6 +227,7 @@ def attention_apply(
     causal: bool = True,
     window: int = 0,
     use_rope: bool = True,
+    scale: Optional[float] = None,
     tp: TPShard = NO_TP,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention with optional KV cache (decode/prefill).  Under a
@@ -234,7 +240,9 @@ def attention_apply(
     gradient from this rank is a partial.  With a cache that holds the
     rank's chunk of the slots (``holds_slot_chunk``), the attention is
     context-parallel (module docstring; serving, no gradient across
-    ranks); with a whole cache it is computed whole."""
+    ranks); with a whole cache it is computed whole.  ``scale``: the
+    scores' scale where a configuration states one (None: 1 / sqrt(hd),
+    the reference's), on every path."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     h, kh = cfg.n_heads, cfg.n_kv_heads
@@ -285,12 +293,16 @@ def attention_apply(
         # a prefill attends over the fresh K/V directly (the ring buffer
         # may hold only the window tail, which would be wrong for early
         # queries); the cache starts empty here
-        out = attend(q, k, v, causal=causal, window=window, q_offset=q0)
+        # a configuration with no stated scale calls the attention as
+        # before it had one
+        extra = {} if scale is None else {"scale": scale}
+        out = attend(q, k, v, causal=causal, window=window, q_offset=q0,
+                     **extra)
     elif split is not None:
         out = _decode_attention_slots(q, new_cache, window=window, tp=tp,
-                                      lo=lo)
+                                      lo=lo, scale=scale)
     else:
-        out = _decode_attention(q, new_cache, window=window)
+        out = _decode_attention(q, new_cache, window=window, scale=scale)
 
     out = out.reshape(b, sq, h * hd) @ w["wo"]
     if split == "heads":
@@ -300,15 +312,16 @@ def attention_apply(
     return out, new_cache
 
 
-def _decode_attention(q: torch.Tensor, cache: KVCache, *,
-                      window: int) -> torch.Tensor:
+def _decode_attention(q: torch.Tensor, cache: KVCache, *, window: int,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """One-token attention against the ring buffer: slot validity and
     causality come from the stored absolute positions."""
     b, s, h, hd = q.shape
     kh = cache.k.shape[2]
     g = h // kh
     qg = q.reshape(b, s, kh, g, hd)
-    scores = _gqa_scores(qg, cache.k.to(q.dtype)) / _sqrt_in(hd, q.dtype)
+    scores = _gqa_scores(qg, cache.k.to(q.dtype)) / _divisor(hd, q.dtype,
+                                                             scale)
     qpos = cache.length - 1                       # position of the new token
     kpos = cache.pos[None, :]                     # [1, S_max]
     mask = (kpos >= 0) & (kpos <= qpos)
@@ -321,7 +334,8 @@ def _decode_attention(q: torch.Tensor, cache: KVCache, *,
 
 
 def _decode_attention_slots(q: torch.Tensor, cache: KVCache, *, window: int,
-                            tp: TPShard, lo: int) -> torch.Tensor:
+                            tp: TPShard, lo: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
     """``_decode_attention`` of a rank that holds slots ``[lo, lo + n)``
     of the ring, joined over ``tp`` by log-sum-exp: the max of the
     masked scores over the split (``decode-max``), ``l = Σ exp(s - m)``
@@ -335,7 +349,8 @@ def _decode_attention_slots(q: torch.Tensor, cache: KVCache, *, window: int,
     n, kh = cache.k.shape[1], cache.k.shape[2]
     g = h // kh
     qg = q.reshape(b, s, kh, g, hd)
-    scores = _gqa_scores(qg, cache.k.to(q.dtype)) / _sqrt_in(hd, q.dtype)
+    scores = _gqa_scores(qg, cache.k.to(q.dtype)) / _divisor(hd, q.dtype,
+                                                             scale)
     qpos = cache.length - 1
     kpos = cache.pos[None, lo:lo + n]
     mask = (kpos >= 0) & (kpos <= qpos)

@@ -79,6 +79,21 @@ def ssm_defs(cfg) -> dict:
     }
 
 
+def mamba2_defs(cfg) -> dict:
+    """The published Mamba2 mixer's leaves (``ssm.mamba2_apply``)."""
+    d, di, h, w = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.conv_width
+    return {
+        "in_proj": ParamDef((d, di + w + h), ("fsdp", "d_inner")),
+        "conv_w": ParamDef((cfg.conv_dim, w), (None, "d_inner"), scale=0.5),
+        "conv_b": ParamDef((w,), ("d_inner",), init="zeros"),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "a_log": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "norm": ParamDef((di,), ("d_inner",), init="ones"),
+        "out_proj": ParamDef((di, d), ("d_inner", "fsdp")),
+    }
+
+
 def cross_defs(cfg) -> dict:
     d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     return {
@@ -91,9 +106,13 @@ def cross_defs(cfg) -> dict:
 
 
 def block_defs(cfg, kind: str) -> dict:
-    """kind: dense | moe | ssm | hybrid | cross | encoder | dec_cross."""
+    """kind: dense | moe | ssm | hybrid | cross | encoder | dec_cross |
+    interleaved (the leaves every layer of an interleaved stack has: its
+    norms and MLP; its mixer is stacked with those of its kind)."""
     def norm():
         return ParamDef((cfg.d_model,), ("d_model",), init="ones")
+    if kind == "interleaved":
+        return {"norm1": norm(), "norm2": norm(), "mlp": mlp_defs(cfg)}
     if kind == "ssm":
         return {"norm": norm(), "ssm": ssm_defs(cfg)}
     if kind == "cross":
@@ -252,3 +271,38 @@ def apply_block(
     else:
         x = x + _swiglu(h, p["mlp"], cfg, tp)
     return x, new_cache, new_state, aux
+
+
+def apply_interleaved(
+    p: dict,
+    x: torch.Tensor,
+    cfg,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[attn_mod.KVCache] = None,
+    ssm_state: Optional[ssm_mod.SSMState] = None,
+):
+    """One layer of an interleaved stack (``config.InterleavedConfig``):
+    ``x + r * mixer(rms(x))``, then ``x + r * mlp(rms(x))``, r the
+    residual multiplier, each branch scaled and summed in float32 (the
+    norm reads the unrounded sum, as ``_residual``).  ``p`` holds the
+    layer's norms and MLP and its mixer: ``attn`` (self-attention at the
+    configuration's score scale, rotary positions where ``use_rope``;
+    ``layer.attention`` span) or ``mamba`` (``ssm.mamba2_apply``;
+    ``layer.ssm`` span).  Returns (x_out, new_cache, new_ssm_state)."""
+    r = cfg.residual_multiplier
+    new_cache, new_state = None, None
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if "attn" in p:
+        with span("layer.attention"):
+            y, new_cache = attn_mod.attention_apply(
+                p["attn"], h, cfg=cfg, positions=positions, cache=cache,
+                use_rope=cfg.use_rope, scale=cfg.score_scale)
+    else:
+        with span("layer.ssm"):
+            y, new_state = ssm_mod.mamba2_apply(p["mamba"], h, cfg,
+                                                ssm_state)
+    x, s32 = _residual(x, y.float() * r)
+    h = _norm32(s32, p["norm2"], cfg, x.dtype)
+    x, _ = _residual(x, _swiglu(h, p["mlp"], cfg, NO_TP).float() * r)
+    return x, new_cache, new_state

@@ -6,11 +6,13 @@ is the training loss's activation-checkpoint policy
 (``torch.utils.checkpoint`` around each layer body, see
 ``models/model.py``); ``scan_layers`` is a compile knob of the JAX
 package, read and ignored (the port runs its layers in a Python loop);
-``attn_impl`` is honoured.
+``attn_impl`` is honoured.  ``InterleavedConfig`` is the port's own
+subclass for a stack of layers of different kinds (Granite 4.0-H).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -162,3 +164,72 @@ class ModelConfig:
         moe_all = n_moe_layers * self.n_experts * 3 * d * ff
         moe_active = n_moe_layers * self.top_k * 3 * d * ff
         return int(total - moe_all + moe_active)
+
+
+LAYER_TYPES = ("mamba", "attention")
+
+
+@dataclasses.dataclass(frozen=True)
+class InterleavedConfig(ModelConfig):
+    """A stack whose layers differ in their token mixer, one kind a
+    layer, each followed by the SwiGLU MLP (IBM's Granite 4.0-H, the
+    ``granitemoehybrid`` modeling code with no experts).  The port's
+    own family, ``interleaved``: the JAX package has no such model, and
+    ``ModelConfig`` gains no field for it.
+
+    ``layer_types``: "mamba" (the published Mamba2 mixer:
+    ``models/ssm.mamba2_apply``) or "attention" (GQA self-attention, its
+    scores times ``attn_scale``, rotary positions only where
+    ``use_rope``), one a layer.  The token embeddings are multiplied by
+    ``embedding_multiplier``, each sublayer's output by
+    ``residual_multiplier`` before the residual sum, and the logits
+    divided by ``logits_scaling``.  ``ssm_groups`` is the mixer's number
+    of B / C groups (the scan takes one)."""
+    layer_types: Tuple[str, ...] = ()
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: float = 0.0          # 0: 1 / sqrt(head_dim)
+    use_rope: bool = True
+    ssm_groups: int = 1
+
+    def __post_init__(self):
+        if self.family != "interleaved":
+            raise ValueError(f"{self.name}: an InterleavedConfig's family "
+                             f"is 'interleaved', got {self.family!r}")
+        if len(self.layer_types) != self.n_layers or \
+                set(self.layer_types) - set(LAYER_TYPES):
+            raise ValueError(f"{self.name}: layer_types must name one of "
+                             f"{LAYER_TYPES} for each of the {self.n_layers} "
+                             f"layers, got {self.layer_types}")
+        if self.ssm_groups != 1:
+            raise ValueError(f"{self.name}: the SSD scan takes one B / C "
+                             f"group, got ssm_groups={self.ssm_groups}")
+
+    def count(self, kind: str) -> int:
+        """The number of layers of ``kind``."""
+        return self.layer_types.count(kind)
+
+    @property
+    def conv_width(self) -> int:
+        """The Mamba2 mixer's convolved channels: x, B and C."""
+        return self.d_inner + 2 * self.ssm_groups * self.ssm_state
+
+    @property
+    def score_scale(self) -> Optional[float]:
+        """The attention's score scale, None for 1 / sqrt(head_dim)."""
+        return self.attn_scale or None
+
+    def param_count_estimate(self) -> int:
+        """Exact: the embedding (the head tied or not), the norms and
+        MLP of every layer, and each kind's mixers."""
+        d, v = self.d_model, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2) + d
+        per_layer = 2 * d + 3 * d * self.d_ff
+        attn = 2 * d * self.q_dim + 2 * d * self.kv_dim
+        di, h, w = self.d_inner, self.ssm_heads, self.conv_width
+        mamba = (d * (di + w + h) + (self.conv_dim + 1) * w + 3 * h + di
+                 + di * d)
+        return int(emb + self.n_layers * per_layer
+                   + self.count("attention") * attn
+                   + self.count("mamba") * mamba)

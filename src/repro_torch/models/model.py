@@ -13,7 +13,15 @@ Python loop:
   * ``params["groups"]`` (VLM ``cross_attn_every``, MoE ``moe_every >
     1``): one dict a group, ``{"plain": [dict, ...], "cross" | "moe":
     dict}``;
-  * ``params["encoder"]`` (Whisper): one dict an encoder layer.
+  * ``params["encoder"]`` (Whisper): one dict an encoder layer;
+  * the interleaved stack (``config.InterleavedConfig``, Granite 4.0-H):
+    ``params["layers"]`` holds what every layer has (its norms and
+    MLP), and each kind's mixers are stacked apart, ``params["attn"]``
+    over the attention layers and ``params["mamba"]`` over the Mamba2
+    layers, in layer order; either a list of per-layer dicts or the
+    stacked tree (taken apart a call).  Its decode state holds KV for
+    the attention layers and the SSM state and conv tail for the Mamba2
+    layers.  It has no sharded step.
 
 Weights keep the reference's ``[in, out]`` layout (``x @ w``).  Every
 call casts the parameters to the compute dtype first (``tree_cast``),
@@ -83,7 +91,16 @@ def _stack_defs(defs, n: int):
 
 def _layer_kind(cfg: ModelConfig) -> str:
     return {"dense": "dense", "moe": "moe", "ssm": "ssm",
-            "hybrid": "hybrid", "audio": "dec_cross", "vlm": "dense"}[cfg.family]
+            "hybrid": "hybrid", "audio": "dec_cross", "vlm": "dense",
+            "interleaved": "interleaved"}[cfg.family]
+
+
+def _interleaved(cfg: ModelConfig) -> bool:
+    return cfg.family == "interleaved"
+
+
+# an interleaved stack's layer kind -> the key of its mixers' stack
+MIXERS = {"attention": "attn", "mamba": "mamba"}
 
 
 def _vlm_groups(cfg: ModelConfig) -> bool:
@@ -125,6 +142,11 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         }
     else:
         out["layers"] = _stack_defs(blocks.block_defs(cfg, kind), cfg.n_layers)
+    if _interleaved(cfg):
+        out["attn"] = _stack_defs(blocks.attn_defs(cfg),
+                                  cfg.count("attention"))
+        out["mamba"] = _stack_defs(blocks.mamba2_defs(cfg),
+                                   cfg.count("mamba"))
 
     if cfg.is_encdec:
         out["encoder"] = _stack_defs(blocks.block_defs(cfg, "encoder"),
@@ -155,7 +177,7 @@ def _unstack(tree) -> list:
 def _unstack_params(tree: dict) -> dict:
     """The reference's stacked tree -> the port's per-layer lists."""
     out = dict(tree)
-    for name in ("layers", "encoder"):
+    for name in ("layers", "encoder", *MIXERS.values()):
         if name in out:
             out[name] = _unstack(out[name])
     if "groups" in out:
@@ -298,6 +320,32 @@ def _run_encoder(params, frames: torch.Tensor, cfg: ModelConfig,
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
+def _interleaved_layers(cparams, cfg: ModelConfig):
+    """(kind, index in its kind's stack, the layer's dict with its mixer
+    under ``attn`` or ``mamba``) of each layer of an interleaved stack,
+    in order."""
+    mixers = {k: cparams[k] if isinstance(cparams[k], list)
+              else _unstack(cparams[k]) for k in MIXERS.values()}
+    seen = dict.fromkeys(MIXERS, 0)
+    for lp, kind in zip(cparams["layers"], cfg.layer_types):
+        j = seen[kind]
+        seen[kind] += 1
+        yield kind, j, {**lp, MIXERS[kind]: mixers[MIXERS[kind]][j]}
+
+
+def _embed_scaled(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """An interleaved stack's embeddings times its multiplier (in
+    float32, rounded once); others' as they are."""
+    if not _interleaved(cfg):
+        return x
+    return (x.float() * cfg.embedding_multiplier).to(x.dtype)
+
+
+def _logits_scaled(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """An interleaved stack's logits over its ``logits_scaling``."""
+    return logits / cfg.logits_scaling if _interleaved(cfg) else logits
+
+
 def _head(cparams, cfg: ModelConfig) -> torch.Tensor:
     return cparams["tok_emb"].T if cfg.tie_embeddings else cparams["lm_head"]
 
@@ -403,7 +451,7 @@ def _forward_impl(
     if gather is not None:
         cparams = gather("top", cparams)
     b, s = tokens.shape
-    x = _embed(cparams["tok_emb"], tokens, cfg, tp)
+    x = _embed_scaled(_embed(cparams["tok_emb"], tokens, cfg, tp), cfg)
     x = shard_constraint(x, "batch", "seq", "d_model")
     positions = torch.arange(s, device=x.device)
 
@@ -448,6 +496,13 @@ def _forward_impl(
         for gp in cparams["groups"]:
             x, aux = body(gp, x)
             aux_total = aux_total + aux
+    elif _interleaved(cfg):
+        def body(lp, h):
+            return blocks.apply_interleaved(lp, h, cfg,
+                                            positions=positions)[0]
+        body = _maybe_remat(body, remat)
+        for _, _, lp in _interleaved_layers(cparams, cfg):
+            x = body(lp, x)
     else:
         def body(lp, h):
             if gather is not None:
@@ -464,7 +519,7 @@ def _forward_impl(
 
     with span("model.head"):
         x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
-        logits = _logits(x, cparams, cfg, tp)
+        logits = _logits_scaled(_logits(x, cparams, cfg, tp), cfg)
     return shard_constraint(logits, "batch", "seq", "vocab"), aux_total
 
 
@@ -610,6 +665,14 @@ def _init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                         zeros(n_groups, dense_per, *shape)),
               "moe": (zeros(n_groups, *shape), zeros(n_groups, *shape))}
         pos = empty_pos(max_len)
+    elif _interleaved(cfg):
+        kv = (zeros(cfg.count("attention"), *shape),
+              zeros(cfg.count("attention"), *shape))
+        pos = empty_pos(max_len)
+        nm = cfg.count("mamba")
+        ssm = (zeros(nm, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state, dtype=torch.float32),
+               zeros(nm, batch, cfg.conv_dim - 1, cfg.conv_width))
     elif cfg.family != "ssm":
         s_len = _cache_seq_len(cfg, max_len)
         kv = (zeros(cfg.n_layers, batch, s_len, cfg.n_kv_heads, cfg.head_dim),
@@ -677,7 +740,7 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
     if gather is not None:
         cparams = gather("top", cparams)
     b, s = tokens.shape
-    x = _embed(cparams["tok_emb"], tokens, cfg, tp)
+    x = _embed_scaled(_embed(cparams["tok_emb"], tokens, cfg, tp), cfg)
     x = shard_constraint(x, "batch", "seq", "d_model")
     length = state.length
     positions = torch.arange(length, length + s, device=x.device)
@@ -728,6 +791,19 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
         for i, lp in enumerate(cparams["layers"]):
             x = run(layer("layers", lp), x, "ssm",
                     ssm_l=(st_all[i], cv_all[i]))
+    elif _interleaved(cfg):
+        k_all, v_all = state.kv
+        st_all, cv_all = state.ssm
+        for kind, j, lp in _interleaved_layers(cparams, cfg):
+            if kind == "attention":
+                x, _, _ = blocks.apply_interleaved(
+                    lp, x, cfg, positions=positions,
+                    cache=KVCache(k_all[j], v_all[j], state.pos, length))
+            else:
+                x, _, new_ssm = blocks.apply_interleaved(
+                    lp, x, cfg, positions=positions,
+                    ssm_state=SSMState(st_all[j], cv_all[j]))
+                _ssm_state_out(st_all[j], cv_all[j], new_ssm, tp)
     elif cfg.family == "hybrid":
         k_all, v_all = state.kv
         st_all, cv_all = state.ssm
@@ -743,7 +819,7 @@ def _forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig,
 
     with span("model.head"):
         x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
-        logits = _logits(x[:, -1, :], cparams, cfg, tp)
+        logits = _logits_scaled(_logits(x[:, -1, :], cparams, cfg, tp), cfg)
         if tp.splits(cfg.vocab_size):
             logits = tp.seq_gather(logits, 1, "logits-all-gather")
     return shard_constraint(logits, "batch", "vocab"), new_state

@@ -2,13 +2,16 @@
 
 The SSD recurrence (Dao & Gu 2024, arXiv:2405.21060) in its chunked
 form: within a chunk the quadratic "attention-like" dual form runs as
-dense einsums; across chunks a small state [heads, head_dim, state]
-carries the recurrence, in a Python loop over the chunks.  The sequence
+dense einsums, for every chunk at once; across chunks a small state
+[heads, head_dim, state] carries the recurrence, in a Python loop over
+the chunks of two operations each.  The sequence
 is padded to whole chunks (a decode step pads its one token to a chunk,
 as the reference does); the cumulative sums and the state stay fp32.
 
 Simplifications vs the full Mamba2 block (as in the reference): scalar
-per-head A, single B/C group, depthwise conv on x only.
+per-head A, single B/C group, depthwise conv on x only.  The published
+mixer (``mamba2_apply``, Granite 4.0-H's) sits beside it on the same
+scan: the conv over x, B and C with a bias, D, and the gated RMSNorm.
 
 Tensor parallelism over ``model`` (``ssm_split``): a rank computes its
 ``ssm_heads / size`` heads, which are exactly its ``d_inner / size``
@@ -25,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import NO_TP, TPShard
 from repro_torch.distributed.sharding import shard_constraint
-from repro_torch.models.layers import silu, softplus
+from repro_torch.models.layers import rms_norm, silu, softplus
+from repro_torch.utils.tracing import span
 
 
 class SSMState(NamedTuple):
@@ -88,9 +92,10 @@ def _split_proj(p, x, cfg, tp: TPShard = NO_TP):
 
 
 def _conv1d(xin: torch.Tensor, w: torch.Tensor,
-            tail: Optional[torch.Tensor]):
-    """Causal depthwise conv over seq.  w: [conv_dim, d_inner].
-    Returns (y, new_tail)."""
+            tail: Optional[torch.Tensor],
+            bias: Optional[torch.Tensor] = None):
+    """Causal depthwise conv over seq, plus ``bias`` where given, then
+    SiLU.  w: [conv_dim, channels].  Returns (y, new_tail)."""
     kdim = w.shape[0]
     if tail is None:
         pad = torch.zeros((xin.shape[0], kdim - 1, xin.shape[2]),
@@ -99,6 +104,8 @@ def _conv1d(xin: torch.Tensor, w: torch.Tensor,
         pad = tail.to(xin.dtype)
     xp = torch.cat([pad, xin], dim=1)                 # [B, S+k-1, di]
     y = sum(xp[:, i: i + xin.shape[1], :] * w[i] for i in range(kdim))
+    if bias is not None:
+        y = y + bias
     new_tail = xp[:, xp.shape[1] - (kdim - 1):, :]
     return silu(y), new_tail
 
@@ -112,7 +119,12 @@ def ssd_chunked(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,   # [B, H, hd, N]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SSD forward. Returns (y [B,S,H,hd], final_state [B,H,hd,N])."""
+    """SSD forward. Returns (y [B,S,H,hd], final_state [B,H,hd,N]).
+
+    What does not depend on the carried state (each chunk's dual term
+    and its own contribution to the state) is computed for every chunk
+    at once; the Python loop over the chunks carries the state alone,
+    two operations a chunk."""
     bsz, s, h, hd = xin.shape
     n = b.shape[-1]
     nc = (s + chunk - 1) // chunk
@@ -135,34 +147,34 @@ def ssd_chunked(
     seg_total = cum[:, :, -1, :]                               # [B,nc,H]
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=xin.device))
-
+    # intra-chunk dual (attention-like) term
+    # L[s,t] = exp(cum[s] - cum[t]) for s >= t
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [B,nc,L,L,H]
+    # mask BEFORE exp: exp of the (large positive) acausal entries
+    # overflows to inf, and inf * 0 is NaN
+    rel = torch.where(causal[None, None, :, :, None], rel, -1e30)
+    gamma = torch.exp(rel)
+    cb = torch.einsum("bcln,bctn->bclt", c_c, b_c)             # [B,nc,L,L]
+    w = cb[..., None] * gamma                                  # [B,nc,L,L,H]
+    xdt = xin_c.float() * dt_c[..., None]                      # [B,nc,L,H,hd]
+    y_intra = torch.einsum("bclth,bcthd->bclhd", w, xdt)
+    # each chunk's own state: sum_t exp(tot-cum_t) * x_t dt_t b_t^T
+    decay_out = torch.exp(seg_total[:, :, None, :] - cum)      # [B,nc,L,H]
+    ds = torch.einsum("bclh,bclhd,bcln->bchdn", decay_out, xdt, b_c)
+    # inter-chunk: the state carried into each chunk,
+    # state' = exp(tot) * state + ds
     state = (init_state if init_state is not None
              else torch.zeros((bsz, h, hd, n), dtype=torch.float32,
                               device=xin.device))
-    ys = []
+    decay_tot = torch.exp(seg_total)[:, :, :, None, None]      # [B,nc,H,1,1]
+    entering = []
     for i in range(nc):
-        xin_i, dt_i, cum_i = xin_c[:, i], dt_c[:, i], cum[:, i]
-        tot_i, b_i, c_i = seg_total[:, i], b_c[:, i], c_c[:, i]
-        # intra-chunk dual (attention-like) term
-        # L[s,t] = exp(cum[s] - cum[t]) for s >= t
-        rel = cum_i[:, :, None, :] - cum_i[:, None, :, :]      # [B,L,L,H]
-        # mask BEFORE exp: exp of the (large positive) acausal entries
-        # overflows to inf, and inf * 0 is NaN
-        rel = torch.where(causal[None, :, :, None], rel, -1e30)
-        gamma = torch.exp(rel)
-        cb = torch.einsum("bln,btn->blt", c_i, b_i)            # [B,L,L]
-        w = cb[:, :, :, None] * gamma                          # [B,L,L,H]
-        xdt = xin_i.float() * dt_i[..., None]                  # [B,L,H,hd]
-        y_intra = torch.einsum("blth,bthd->blhd", w, xdt)
-        # inter-chunk: contribution of carried state
-        decay_in = torch.exp(cum_i)                            # [B,L,H]
-        y_inter = torch.einsum("bln,bhdn,blh->blhd", c_i, state, decay_in)
-        # state' = exp(tot) * state + sum_t exp(tot-cum_t) * x_t dt_t b_t^T
-        decay_out = torch.exp(tot_i[:, None, :] - cum_i)       # [B,L,H]
-        ds = torch.einsum("blh,blhd,bln->bhdn", decay_out, xdt, b_i)
-        state = torch.exp(tot_i)[:, :, None, None] * state + ds
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(bsz, nc * chunk, h, hd)[:, :s]
+        entering.append(state)
+        state = decay_tot[:, i] * state + ds[:, i]
+    decay_in = torch.exp(cum)                                  # [B,nc,L,H]
+    y_inter = torch.einsum("bcln,bchdn,bclh->bclhd", c_c,
+                           torch.stack(entering, dim=1), decay_in)
+    y = (y_intra + y_inter).reshape(bsz, nc * chunk, h, hd)[:, :s]
     return y.to(xin.dtype), state
 
 
@@ -203,6 +215,46 @@ def ssm_apply(
     y = y.reshape(bsz, s, di)
     y = y * silu(z)                            # gated output
     out = tp.region_out(y @ tp.part(p["out_proj"], 0, cfg.d_inner))
+    if state is not None:
+        return out, SSMState(new_state, new_conv)
+    return out, None
+
+
+def mamba2_apply(
+    p: dict,
+    x: torch.Tensor,            # [B, S, d_model], normed
+    cfg,
+    state: Optional[SSMState] = None,
+) -> Tuple[torch.Tensor, Optional[SSMState]]:
+    """The published Mamba2 mixer (mamba_ssm's ``Mamba2``; Granite
+    4.0-H's ``GraniteMoeHybridMambaLayer``): ``in_proj`` to the gate z,
+    xBC and dt; the causal depthwise conv over xBC (``conv_w`` [k,
+    ``cfg.conv_width``]) with its bias ``conv_b``, then SiLU; x, B, C
+    split from it (one group); dt = softplus(dt + ``dt_bias``), no
+    clamp; A = -exp(``a_log``); the SSD scan (``ssd_chunked``, in
+    float32) plus D x; the gated RMSNorm rms(y silu(z)) ``norm`` over
+    all ``d_inner`` channels, in float32; ``out_proj``.  With ``state``
+    the call is incremental (prefill appends S tokens, decode S = 1):
+    ``state.conv`` [B, k-1, conv_width] holds the last xBC inputs of the
+    conv, and the new state is returned.  The scan runs in an
+    ``ssm.scan`` span."""
+    bsz, s, _ = x.shape
+    di, h, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    z, xbc, dt = torch.split(x @ p["in_proj"], [di, cfg.conv_width, h],
+                             dim=-1)
+    xbc, new_conv = _conv1d(xbc, p["conv_w"],
+                            state.conv if state is not None else None,
+                            bias=p["conv_b"])
+    xin, b, c = torch.split(xbc, [di, n, n], dim=-1)
+    dt = softplus(dt + p["dt_bias"])
+    xin_h = xin.reshape(bsz, s, h, cfg.ssm_head_dim)
+    with span("ssm.scan"):
+        y, new_state = ssd_chunked(
+            xin_h, dt, p["a_log"], b, c, cfg.ssm_chunk,
+            init_state=state.state if state is not None else None)
+    y = y + xin_h * p["d_skip"][None, None, :, None]
+    g = y.reshape(bsz, s, di).float() * silu(z.float())
+    out = rms_norm(g, p["norm"], cfg.norm_eps).to(x.dtype) @ p["out_proj"]
     if state is not None:
         return out, SSMState(new_state, new_conv)
     return out, None

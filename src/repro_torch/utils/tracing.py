@@ -23,6 +23,12 @@ in the profiler's own trace (``export_chrome_trace``) as
   * ``serve.init_state``: ``models/model.init_decode_state``;
   * ``data.wait``: ``data/pipeline.PrefetchIterator``'s wait for a
     batch.
+
+``SSM_SPANS`` names the published Mamba2 mixer's two
+(``models/blocks.apply_interleaved``, ``models/ssm.mamba2_apply``):
+
+  * ``layer.ssm``: a layer's Mamba2 mixer, its state write included;
+  * ``ssm.scan``: the SSD scan inside it (``ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from torch.autograd import profiler as _profiler
 SPANS = ("train.forward", "train.backward", "train.optimizer",
          "model.cast", "model.layer", "layer.attention", "model.head",
          "model.loss", "serve.init_state", "data.wait")
+SSM_SPANS = ("layer.ssm", "ssm.scan")
 
 _OFF = contextlib.nullcontext()
 
